@@ -10,19 +10,26 @@ Phases (any failure exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version on the card, exactly,
    on unit cases and at main-path shapes, with CUDA-event times of the
    kernel, the plain version and the one-call library yardstick;
-3. the main path: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
-   the paper's smallest WatDiv dataset, τ = 0.25) served on the card
+3. the main path, with the kernels' launch counts reset just before and
+   read just after: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
+   the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
+   the card (the semi-join kernel over every pair batch), then serves
    through ``Engine.query`` (every instance of the 20 basic templates)
-   and ``Engine.query_batch`` (each template's instances in one call),
-   with the kernels' launch counts reset just before and read just
-   after; then the kernels timed again on the largest inputs the main
-   path gave them;
+   and ``Engine.query_batch`` (each template's instances in one call);
+   then the numpy ExtVP build over the same VP tables, which must give a
+   byte-identical catalog, and both kernels timed again on the largest
+   inputs the main path gave them;
 4. the check: the card engine and the same port engine on the CPU serve
    the same queries, and every result must be equal row for row, with
    equal final capacities: every instance, single and batched.  At
    ``--scale`` every template but C1 and C2 (10^8 result rows each,
    which the CPU engine cannot serve within the smoke's time limit); at
-   ``--compare-scale`` (a tenth) every template.
+   ``--compare-scale`` (a tenth) every template;
+5. append, save and load at ``--compare-scale``: build on the first 99 %
+   of the triples, save, append the last 1 %, load the store lazily
+   (the journal replays on the card), and hold the catalog byte for
+   byte against a from-scratch build over all of them, and a few
+   templates row for row against the in-memory dataset.
 
 It prints one JSON line with the kernels' numbers, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -35,6 +42,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,8 +50,11 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
-TPU_KERNEL = {"join_probe": "src/repro/kernels/mergejoin.py:40"}
-KERNEL_SOURCE = {"join_probe": "src/repro_torch/kernels/csrc/join_probe.cu"}
+TPU_KERNEL = {"join_probe": "src/repro/kernels/mergejoin.py:40",
+              "semijoin_membership": "src/repro/kernels/semijoin.py:40"}
+KERNEL_SOURCE = {
+    "join_probe": "src/repro_torch/kernels/csrc/join_probe.cu",
+    "semijoin_membership": "src/repro_torch/kernels/csrc/semijoin.cu"}
 
 
 def log(*a) -> None:
@@ -168,6 +179,103 @@ def phase_kernels(ops, ref) -> None:
     torch.cuda.empty_cache()
 
 
+def semijoin_cases(gen: torch.Generator):
+    """(name, [(probe, build_sorted), ...]) pair batches on the host."""
+    big = 2**31 - 1
+
+    def build_of(n, hi):
+        return torch.unique(torch.randint(0, hi, (n,), generator=gen,
+                                          dtype=torch.int32))
+
+    def probe_of(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
+
+    return [
+        # the pad sentinels: probe pads 2^31-1, build pads 2^31-2
+        ("sentinels", [(torch.tensor([5, big, 9, big - 1, -1, 0, 7],
+                                     dtype=torch.int32),
+                        torch.tensor([-1, 0, 5, 9, big - 1],
+                                     dtype=torch.int32))]),
+        ("empty build", [(torch.arange(50, dtype=torch.int32),
+                          torch.empty(0, dtype=torch.int32))]),
+        ("build of one key", [(probe_of(300, 4),
+                               torch.tensor([2], dtype=torch.int32))]),
+        ("probe not in order", [(torch.randperm(5000, generator=gen)
+                                 .to(torch.int32), build_of(2000, 6000))]),
+        ("ragged batch", [(probe_of(n_a, 900), build_of(n_b, 900))
+                          for n_a, n_b in [(255, 7), (256, 1), (257, 300),
+                                           (0, 5), (1, 0), (1000, 513),
+                                           (3001, 2000)]]),
+        ("64 pairs of up to 2^20 keys",
+         [(probe_of(int(n_a), 1 << 21), build_of(int(n_b), 1 << 21))
+          for n_a, n_b in torch.randint(0, 1 << 20, (64, 2), generator=gen)]),
+    ]
+
+
+def pack_pairs(batch):
+    """One ragged (probe, build, pairs) triple of a list of pairs."""
+    probe = torch.cat([a for a, _ in batch])
+    build = torch.cat([b for _, b in batch])
+    la = np.array([a.numel() for a, _ in batch], dtype=np.int64)
+    lb = np.array([b.numel() for _, b in batch], dtype=np.int64)
+    pairs = np.stack([np.cumsum(la) - la, la, np.cumsum(lb) - lb, lb], axis=1)
+    return probe, build, pairs
+
+
+def check_semijoin(ops, ref, probe, build, pairs, what: str) -> int:
+    mask, counts = ops.semijoin_mask(probe, build, pairs)
+    torch.cuda.synchronize()
+    wmask, wcounts = ref.semijoin_pairs_ref(probe, build, pairs)
+    if mask.dtype != torch.uint8 or counts.dtype != torch.int64:
+        raise AssertionError(f"semijoin {what}: outputs not uint8 / int64")
+    err = max(int((mask.int() - wmask.int()).abs().max())
+              if mask.numel() else 0,
+              int((counts - wcounts).abs().max()) if counts.numel() else 0)
+    if err:
+        raise AssertionError(f"semijoin {what}: kernel != plain "
+                             f"(max abs err {err})")
+    return err
+
+
+def semijoin_numbers(ops, ref, probe, build, pairs, reps: int) -> dict:
+    """Times and bound of the semi-join kernel on one pair batch; the
+    library yardstick (``torch.isin``) only for a batch of one pair."""
+    pairs = np.asarray(pairs, dtype=np.int64)
+    ms = cuda_time_ms(lambda: ops.semijoin_mask(probe, build, pairs), reps)
+    plain_ms = cuda_time_ms(
+        lambda: ref.semijoin_pairs_ref(probe, build, pairs), reps)
+    library_ms = None
+    if len(pairs) == 1:
+        po, pl, bo, bl = (int(x) for x in pairs[0])
+        a, b = probe[po:po + pl], build[bo:bo + bl]
+        library_ms = cuda_time_ms(lambda: torch.isin(a, b), reps)
+    n_keys = int(pairs[:, 1].sum())
+    # bytes the function must move: each probe key read (4 B) and its
+    # mask byte written, each distinct build segment read once, the
+    # pair descriptors read and the int64 counts written
+    builds = {(int(o), int(n)) for o, n in pairs[:, 2:4]}
+    nbytes = 5 * n_keys + 4 * sum(n for _, n in builds) + 48 * len(pairs)
+    # compares these inputs need: a lower-bound search of
+    # ceil(log2(build_len + 1)) steps per key and one equality test
+    steps = np.ceil(np.log2(pairs[:, 3] + 1)).astype(np.int64) + 1
+    nops = int((pairs[:, 1] * steps).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / SCALAR_OPS_PER_S * 1e3
+    return {"pairs": len(pairs), "n_keys": n_keys, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_semijoin_kernel(ops, ref) -> None:
+    gen = torch.Generator().manual_seed(1)
+    for what, batch in semijoin_cases(gen):
+        probe, build, pairs = pack_pairs(batch)
+        check_semijoin(ops, ref, probe.cuda(), build.cuda(), pairs, what)
+        log(f"  semijoin == plain: {what} ({len(pairs)} pairs, "
+            f"{int(pairs[:, 1].sum())} probe keys)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -191,17 +299,53 @@ class ProbeRecorder:
         return self.inner(a, b)
 
     def __enter__(self):
-        self.jexec.ops = _OpsShim(self.jexec.ops, self)
+        self.jexec.ops = _OpsShim(self.jexec.ops, join_probe=self)
         return self
 
     def __exit__(self, *exc):
         self.jexec.ops = self.jexec.ops.base
 
 
+class SemijoinRecorder:
+    """Keeps the largest pair batch the main path hands the semi-join
+    kernel, and the wall time of each call up to the host's read of its
+    counts (which the build makes right after the call anyway).  It calls
+    the wrapper unchanged; the launch count stays the wrapper's."""
+
+    def __init__(self, eb):
+        self.eb = eb
+        self.inner = eb.ops.semijoin_mask
+        self.best = None
+        self.calls = []
+
+    def __call__(self, probe, build, pairs=None):
+        t = time.perf_counter()
+        out = self.inner(probe, build, pairs)
+        torch.cuda.synchronize()
+        n_keys = int(np.asarray(pairs)[:, 1].sum())
+        self.calls.append((len(pairs), n_keys,
+                           (time.perf_counter() - t) * 1e3))
+        if self.best is None or n_keys > int(self.best[2][:, 1].sum()):
+            self.best = (probe, build, np.array(pairs, dtype=np.int64))
+        return out
+
+    def __enter__(self):
+        self.eb.ops = _OpsShim(self.eb.ops, semijoin_mask=self)
+        return self
+
+    def __exit__(self, *exc):
+        self.eb.ops = self.eb.ops.base
+
+
 class _OpsShim:
-    def __init__(self, base, rec):
+    """The kernels' ops module with some wrappers replaced."""
+
+    def __init__(self, base, **override):
         self.base = base
-        self.join_probe = rec
+        self.__dict__.update(override)
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
 
 
 def p(xs, q):
@@ -285,21 +429,28 @@ def serve_suite(eng, queries, timed_reps: int):
     return stats
 
 
-def phase_main(args, ops, ref, jexec, Dataset, basic_queries) -> dict:
-    t = time.perf_counter()
-    ds = Dataset.watdiv(scale=args.scale, seed=args.seed, threshold=0.25)
-    build_s = time.perf_counter() - t
+def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with SemijoinRecorder(eb) as srec:
+        t = time.perf_counter()
+        ds = Dataset.watdiv(scale=args.scale, seed=args.seed, threshold=0.25)
+        build_s = time.perf_counter() - t
+    if ds.build_backend != "torch" or ds.device.type != "cuda" or \
+            ds.catalog.extvp.backend != "torch":
+        raise AssertionError("the dataset's ExtVP was not built on the card")
     rep = ds.storage_report()
     log(f"  dataset: scale {args.scale}, {ds.n_triples} triples, "
         f"VP {int(rep['vp_tuples'])} rows, ExtVP {int(rep['extvp_tables'])} "
-        f"tables / {int(rep['extvp_tuples'])} rows; generation + catalog "
-        f"build {build_s:.1f} s (catalog build "
-        f"{rep['vp_build_seconds'] + rep['extvp_build_seconds']:.1f} s)")
+        f"tables / {int(rep['extvp_tuples'])} rows, "
+        f"{int(rep['n_semijoins'])} pairs semi-joined; generation + catalog "
+        f"build {build_s:.1f} s (VP {rep['vp_build_seconds']:.3f} s, ExtVP "
+        f"on the card {rep['extvp_build_seconds']:.3f} s)")
+    log(f"  semijoin calls of the build (pairs, probe keys, ms to the "
+        f"counts on the host): {srec.calls}")
     eng = ds.engine()
     assert eng.device.type == "cuda"
     queries = basic_queries(ds.schema, seed=args.seed)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     with ProbeRecorder(jexec) as rec:
         t = time.perf_counter()
         stats = serve_suite(eng, queries, args.reps)
@@ -308,9 +459,9 @@ def phase_main(args, ops, ref, jexec, Dataset, basic_queries) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"  served {sum(len(v) for v in queries.values())} queries x "
         f"{1 + args.reps} + {len(queries)} batches in {serve_s:.1f} s; "
-        f"join_probe launches {launches['join_probe']}; tables on the card "
+        f"launches {launches}; tables on the card "
         f"{device_table_bytes(eng) / 2**20:.1f} MiB; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"(build and suite) {peak / 2**30:.2f} GiB")
     for name, s in stats.items():
         log(f"  {name}: rows {s['rows']}, p50 {p(s['lat'], 50):.3f} ms, "
             f"max {max(s['lat']):.3f} ms of {len(s['lat'])} warm queries, "
@@ -322,19 +473,69 @@ def phase_main(args, ops, ref, jexec, Dataset, basic_queries) -> dict:
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
+    nums = {}
     a, b = rec.best
     shapes = sorted(rec.shapes.items(), key=lambda kv: -kv[0][0])[:5]
     log(f"  largest join_probe shapes (n_a, n_b): count: {shapes}")
     err = check_probe(ops, ref, a, b, "main-path inputs")
-    nums = probe_numbers(ops, ref, a, b)
+    pn = probe_numbers(ops, ref, a, b)
     log(f"  join_probe on the main path's largest inputs "
-        f"({nums['n_a']} x {nums['n_b']}): equal; kernel {nums['ms']:.4f} ms, "
-        f"plain {nums['plain_ms']:.4f} ms, torch.searchsorted x2 "
-        f"{nums['library_ms']:.4f} ms, bound {nums['bound_ms']:.4f} ms")
+        f"({pn['n_a']} x {pn['n_b']}): equal; kernel {pn['ms']:.4f} ms, "
+        f"plain {pn['plain_ms']:.4f} ms, torch.searchsorted x2 "
+        f"{pn['library_ms']:.4f} ms, bound {pn['bound_ms']:.4f} ms")
+    nums["join_probe"] = dict(pn, launches=launches["join_probe"],
+                              max_abs_err=err)
     del rec, a, b
+    nums["semijoin_membership"] = semijoin_main_numbers(
+        ops, ref, srec.best, launches["semijoin_membership"])
+    del srec
     torch.cuda.empty_cache()
-    return {"join_probe": dict(nums, launches=launches["join_probe"],
-                               max_abs_err=err)}, ds, eng, queries
+    return nums, ds, eng, queries
+
+
+def semijoin_main_numbers(ops, ref, best, launches: int) -> dict:
+    """The semi-join kernel against its plain version on the main path's
+    largest pair batch (the whole build at scale 340) and on its largest
+    pair; the JSON line reports the largest pair, which has a one-call
+    library yardstick."""
+    probe, build, pairs = best
+    err = check_semijoin(ops, ref, probe, build, pairs, "main-path batch")
+    bn = semijoin_numbers(ops, ref, probe, build, pairs, reps=10)
+    log(f"  semijoin on the main path's batch ({bn['pairs']} pairs, "
+        f"{bn['n_keys']} probe keys): equal; kernel {bn['ms']:.4f} ms, "
+        f"plain {bn['plain_ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms "
+        f"({bn['bound_by']}, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    j = int(np.lexsort((pairs[:, 3], pairs[:, 1]))[-1])
+    one = pairs[j:j + 1]
+    err = max(err, check_semijoin(ops, ref, probe, build, one,
+                                  "main-path largest pair"))
+    ln = semijoin_numbers(ops, ref, probe, build, one, reps=20)
+    log(f"  semijoin on the main path's largest pair ({int(one[0, 1])} "
+        f"probe keys x {int(one[0, 3])} build keys): equal; kernel "
+        f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, torch.isin "
+        f"{ln['library_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms "
+        f"({ln['bound_by']}); launches on the main path {launches}")
+    return dict(ln, launches=launches, max_abs_err=err)
+
+
+def phase_identity(ds, build_extvp) -> None:
+    """The numpy ExtVP build over the card build's VP tables must give a
+    byte-identical ExtVP.  Both builds read the same sorted-unique
+    columns, computed once with the VP statistics before either ran."""
+    card = ds.catalog.extvp
+    host = build_extvp(ds.catalog.vp, threshold=card.threshold,
+                       kinds=card.kinds, backend="numpy")
+    if host.sf != card.sf or host.sizes != card.sizes:
+        raise AssertionError("card ExtVP: SF map or sizes != numpy build")
+    if set(host.tables) != set(card.tables):
+        raise AssertionError("card ExtVP: materialized set != numpy build")
+    for k, t in host.tables.items():
+        if t.rows.tobytes() != card.tables[k].rows.tobytes():
+            raise AssertionError(f"card ExtVP: rows of {k} != numpy build")
+    log(f"  ExtVP byte-identical to the numpy build: {len(card.sf)} pairs "
+        f"(SF, sizes), {len(card.tables)} tables, "
+        f"{card.total_tuples()} rows; ExtVP build on the card "
+        f"{card.build_seconds:.3f} s, numpy build {host.build_seconds:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +583,93 @@ def compare(ds, gpu, queries, ops, skip=()) -> None:
         f"{t_cpu:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: append, save and load
+# ---------------------------------------------------------------------------
+
+def same_catalog(a, b, what: str) -> None:
+    """Byte-level equality of two catalogs (tables, statistics,
+    dictionary); raises on the first difference."""
+    def same(x, y):
+        return np.asarray(x).tobytes() == np.asarray(y).tobytes()
+
+    checks = [("triples", same(a.tt, b.tt)),
+              ("VP set", set(a.vp) == set(b.vp)),
+              ("ExtVP set", set(a.extvp.tables) == set(b.extvp.tables)),
+              ("SF map", a.extvp.sf == b.extvp.sf),
+              ("sizes", a.extvp.sizes == b.extvp.sizes),
+              ("distinct counts", (a.distinct_s, a.distinct_o, a.m2_s,
+                                   a.m2_o) == (b.distinct_s, b.distinct_o,
+                                               b.m2_s, b.m2_o)),
+              ("dictionary", a.dictionary.id_to_term ==
+               b.dictionary.id_to_term and
+               same(a.dictionary.values, b.dictionary.values))]
+    for name, ok in checks:
+        if not ok:
+            raise AssertionError(f"{what}: {name} differ")
+    for p in a.vp:
+        if not same(a.vp[p].rows, b.vp[p].rows):
+            raise AssertionError(f"{what}: VP rows of {p} differ")
+    for k in a.extvp.tables:
+        if not same(a.extvp.tables[k].rows, b.extvp.tables[k].rows):
+            raise AssertionError(f"{what}: ExtVP rows of {k} differ")
+
+
+def phase_store(ds, queries, ops, Dataset, root: str) -> None:
+    """Build on the first 99 % of ``ds``'s triples (as strings), save,
+    append the last 1 %, load the store lazily (the journal replays on
+    the card) and hold it against a from-scratch build over all of them
+    and, on a few templates, against the in-memory dataset."""
+    triples = ds.dictionary.decode_rows(np.asarray(ds.catalog.tt))
+    cut = len(triples) - len(triples) // 100
+    ops.reset_launches()
+    t = time.perf_counter()
+    mem = Dataset.from_triples(triples[:cut], threshold=0.25)
+    base_s = time.perf_counter() - t
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = os.path.join(tmp, "store")
+        t = time.perf_counter()
+        mem.save(path)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        report = mem.append_triples(triples[cut:])
+        append_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = Dataset.load(path)
+        load_s = time.perf_counter() - t
+        vp, ext = loaded.catalog.vp, loaded.catalog.extvp.tables
+        lazy = f"{ext.n_loaded} of {len(ext)} ExtVP tables loaded" \
+            if hasattr(ext, "n_loaded") else "ExtVP not lazy"
+        if loaded.catalog.store is None or \
+                loaded.storage_report()["delta_segments"] != 1:
+            raise AssertionError("loaded store carries no delta segment")
+        launches = ops.launches["semijoin_membership"]
+        t = time.perf_counter()
+        scratch = Dataset.from_triples(triples, threshold=0.25)
+        scratch_s = time.perf_counter() - t
+        same_catalog(scratch.catalog, loaded.catalog, "load + replay")
+        same_catalog(scratch.catalog, mem.catalog, "append")
+        n = 0
+        for name in ("S1", "L2", "F3", "C3"):
+            for q in queries[name]:
+                a = loaded.engine().query(q)
+                b = mem.engine().query(q)
+                if a.cols != b.cols or not np.array_equal(a.data, b.data):
+                    raise AssertionError(f"{name}: loaded store != "
+                                         "in-memory dataset")
+                n += 1
+        del loaded, mem, scratch, vp, ext
+    if launches <= 0:
+        raise AssertionError("no semijoin launch in build, append or replay")
+    log(f"  {len(triples)} triples: base build on {cut} {base_s:.1f} s, "
+        f"save {save_s:.2f} s, append {len(triples) - cut} "
+        f"{append_s:.2f} s (pairs {report}), lazy load + replay "
+        f"{load_s:.2f} s ({lazy} after replay), scratch build "
+        f"{scratch_s:.1f} s; catalog byte-identical to scratch; {n} "
+        f"results equal row for row; semijoin launches {launches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=340.0)
@@ -396,7 +684,9 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch import Dataset
+    from repro_torch.core import extvp_build as eb
     from repro_torch.core import jexec
+    from repro_torch.core.vp import build_extvp
     from repro_torch.kernels import build, ops, ref
     from repro_torch.rdf.workloads import basic_queries
 
@@ -409,9 +699,11 @@ def main() -> int:
         f"{time.perf_counter() - t:.1f} s")
     log("[2] kernels against their plain versions")
     phase_kernels(ops, ref)
+    phase_semijoin_kernel(ops, ref)
     log("[3] main path")
-    nums, ds, eng, queries = phase_main(args, ops, ref, jexec, Dataset,
+    nums, ds, eng, queries = phase_main(args, ops, ref, jexec, eb, Dataset,
                                         basic_queries)
+    phase_identity(ds, build_extvp)
     log(f"[4] card against CPU at scale {args.scale}")
     compare(ds, eng, queries, ops, skip={"C1", "C2"})
     del ds, eng, queries
@@ -419,7 +711,11 @@ def main() -> int:
     log(f"[4] card against CPU at scale {args.compare_scale}")
     ds = Dataset.watdiv(scale=args.compare_scale, seed=args.seed,
                         threshold=0.25)
-    compare(ds, ds.engine(), basic_queries(ds.schema, seed=args.seed), ops)
+    queries = basic_queries(ds.schema, seed=args.seed)
+    compare(ds, ds.engine(), queries, ops)
+    log(f"[5] append, save and load at scale {args.compare_scale}")
+    phase_store(ds, queries, ops, Dataset,
+                os.path.join(here, "build", "smoke_store"))
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

@@ -38,12 +38,20 @@ _EMPTY_TABLE = Table(np.empty((0, 2), dtype=np.int32))
 
 @dataclass
 class Catalog:
-    tt: np.ndarray                      # int32[N, 3]
+    """``vp`` and ``extvp.tables`` are *table providers*: any
+    ``Mapping[key, Table]``.  In-RAM builds use plain dicts; stores
+    loaded from disk use :class:`~repro_torch.core.table.LazyTableMap`,
+    whose values memory-map their column files on first touch — callers
+    must not assume dict mutability (copy before mutating, as
+    ``Dataset.append_triples`` does)."""
+
+    tt: np.ndarray                      # int32[N, 3] (may be a memmap)
     vp: Mapping[int, Table]
     extvp: ExtVPBuild
     dictionary: object = None           # Optional[repro_torch.rdf.Dictionary]
     vp_build_seconds: float = 0.0
     with_extvp: bool = True             # False: VP-only store (no pair stats)
+    store: object = None                # Optional[repro_torch.store.StoreInfo]
     #: per-predicate distinct-subject / distinct-object counts and second
     #: moments (Σ per-value-count²) over the VP tables — the statistics
     #: of the cardinality-estimate planner, carried so a catalog holds
@@ -105,7 +113,11 @@ class Catalog:
 
     # ---- storage accounting (paper Table 2) ---------------------------------
     def storage_report(self) -> Dict[str, float]:
-        vp_tuples = sum(len(t) for t in self.vp.values())
+        # never force a lazy provider's loaders just to count tuples —
+        # LazyTableMap answers from its manifest-sourced length metadata
+        total_rows = getattr(self.vp, "total_rows", None)
+        vp_tuples = int(total_rows()) if total_rows is not None \
+            else sum(len(t) for t in self.vp.values())
         ext_tuples = self.extvp.total_tuples()
         return {
             "n_triples": float(len(self.tt)),
@@ -119,6 +131,11 @@ class Catalog:
             "vp_build_seconds": self.vp_build_seconds,
             "extvp_build_seconds": self.extvp.build_seconds,
             "n_semijoins": float(self.extvp.n_semijoins),
+            # persisted form (0 when the catalog has no on-disk store)
+            "store_bytes": float(self.store.total_bytes)
+            if self.store else 0.0,
+            "delta_segments": float(self.store.delta_segments)
+            if self.store else 0.0,
         }
 
 
@@ -152,15 +169,23 @@ def build_catalog(
     threshold: float = 1.0,
     kinds: Tuple[str, ...] = KINDS,
     with_extvp: bool = True,
+    build_backend: str = "numpy",
+    device=None,
 ) -> Catalog:
-    """End-to-end load: TT -> VP -> ExtVP(τ) + stats (host build)."""
+    """End-to-end load: TT -> VP -> ExtVP(τ) + stats.
+
+    ``build_backend`` selects the ExtVP build: the ``"numpy"`` host loop
+    or the ``"torch"`` pair-batched build on ``device`` (None means
+    ``"cuda"``); both give byte-identical catalogs.
+    """
     t0 = time.perf_counter()
     vp = build_vp(tt)
     distinct_s, distinct_o = compute_distinct_counts(vp)
     m2_s, m2_o = compute_second_moments(vp)
     vp_secs = time.perf_counter() - t0
     if with_extvp:
-        ext = build_extvp(vp, threshold=threshold, kinds=kinds)
+        ext = build_extvp(vp, threshold=threshold, kinds=kinds,
+                          backend=build_backend, device=device)
     else:
         ext = ExtVPBuild(threshold=threshold, kinds=tuple(kinds))
     return Catalog(tt=np.asarray(tt, dtype=np.int32), vp=vp, extvp=ext,

@@ -12,14 +12,16 @@ power-of-two capacity with ``PAD`` rows (which sort after all valid ids).
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
 from functools import cached_property
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from repro_torch.rdf.dictionary import PAD
 
-__all__ = ["Table", "pad_rows", "round_up_pow2"]
+__all__ = ["Table", "LazyTableMap", "pad_rows", "round_up_pow2"]
 
 
 def round_up_pow2(n: int, minimum: int = 8) -> int:
@@ -80,3 +82,69 @@ class Table:
 
     def nbytes(self) -> int:
         return int(self.rows.nbytes)
+
+
+class LazyTableMap(Mapping):
+    """A ``Mapping[key, Table]`` whose values materialize on first access.
+
+    This is the table-provider indirection behind ``Catalog.vp`` and
+    ``Catalog.extvp.tables``: an in-RAM catalog uses plain dicts, a
+    persistent one (:mod:`repro_torch.store`) uses a ``LazyTableMap`` of
+    per-file loader callables that ``np.memmap`` the on-disk columns — the
+    compiler and the executor cannot tell the two apart.  Key/len/contains
+    queries never touch a loader; each loader runs at most once and its
+    ``Table`` is cached (so per-table ``cached_property`` views such as
+    ``rows_by_o`` persist across accesses exactly like the in-RAM form).
+
+    ``lengths`` (optional, per-key row counts — the store reader passes
+    the manifest's) lets size accounting (``total_rows``) answer without
+    running a single loader.
+    """
+
+    def __init__(self, loaders: Dict[object, Callable[[], "Table"]],
+                 lengths: Optional[Dict[object, int]] = None):
+        self._loaders = dict(loaders)
+        self._cache: Dict[object, Table] = {}
+        self._lengths = None if lengths is None else dict(lengths)
+
+    def __getitem__(self, key) -> "Table":
+        t = self._cache.get(key)
+        if t is None:
+            t = self._loaders[key]()        # KeyError propagates
+            self._cache[key] = t
+        return t
+
+    def __contains__(self, key) -> bool:
+        return key in self._loaders
+
+    def __iter__(self):
+        return iter(self._loaders)
+
+    def __len__(self) -> int:
+        return len(self._loaders)
+
+    @property
+    def n_loaded(self) -> int:
+        """How many tables have been touched (lazy-load observability)."""
+        return len(self._cache)
+
+    def total_rows(self) -> int:
+        """Total rows across all tables — from the ``lengths`` metadata
+        when available (no loader runs), by materializing otherwise."""
+        if self._lengths is not None:
+            return int(sum(self._lengths.values()))
+        return sum(len(self[k]) for k in self._loaders)
+
+    def loader_for(self, key) -> Callable[[], "Table"]:
+        """The zero-arg provider for ``key``, WITHOUT materializing it —
+        lets a derived catalog (``Dataset.append_triples`` carry-over)
+        re-wrap untouched tables lazily instead of loading them."""
+        t = self._cache.get(key)
+        if t is not None:
+            return lambda: t
+        return self._loaders[key]
+
+    def materialize_all(self) -> None:
+        """Force every table (the eager-load mode)."""
+        for key in self._loaders:
+            self[key]

@@ -19,10 +19,17 @@ threshold τ (§5.3).  Statistics (SF, sizes) are recorded for **all** pairs
 compiler uses them for table selection, join ordering, and the
 statistics-only ∅ short-circuit (ST-8).
 
-The builder is the offline analogue of S2RDF's Spark load job.  This
-module carries the ``"numpy"`` host build only (sorted-array membership
-via ``np.searchsorted``, one semi-join per pair); the device build over
-the semi-join kernel is not ported yet.
+The build is the offline analogue of S2RDF's Spark load job.  Two
+builds implement it behind ``build_extvp(..., backend=...)``, both
+through :mod:`repro_torch.core.extvp_build`:
+
+* ``"numpy"`` — the host loop (sorted-array membership via
+  ``np.searchsorted``), one semi-join per pair;
+* ``"torch"`` — the pair-batched device build: the catalog is packed
+  once into ragged device columns and whole batches of (kind, p1, p2)
+  pairs are semi-joined in one launch of the semi-join kernel.
+
+Both produce byte-identical tables and statistics.
 """
 
 from __future__ import annotations
@@ -35,10 +42,13 @@ import numpy as np
 
 from repro_torch.core.table import Table
 
-__all__ = ["build_vp", "build_extvp", "ExtVPBuild", "SS", "OS", "SO", "KINDS"]
+__all__ = ["build_vp", "build_extvp", "ExtVPBuild", "SS", "OS", "SO", "KINDS",
+           "BUILD_BACKENDS"]
 
 SS, OS, SO = "SS", "OS", "SO"
 KINDS = (SS, OS, SO)
+#: the ExtVP builds (module docstring)
+BUILD_BACKENDS = ("numpy", "torch")
 
 Key = Tuple[str, int, int]  # (kind, p1, p2)
 
@@ -53,6 +63,7 @@ class ExtVPBuild:
     threshold: float = 1.0
     build_seconds: float = 0.0
     n_semijoins: int = 0
+    backend: str = "numpy"
     kinds: Tuple[str, ...] = KINDS
 
     def n_tables(self, lo: float = 0.0, hi: float = 1.0) -> int:
@@ -62,6 +73,11 @@ class ExtVPBuild:
         return sum(1 for v in self.sf.values() if lo < v <= hi and v < 1.0)
 
     def total_tuples(self) -> int:
+        # lazy table providers answer from their length metadata so
+        # accounting never forces a load (see table.LazyTableMap)
+        total_rows = getattr(self.tables, "total_rows", None)
+        if total_rows is not None:
+            return int(total_rows())
         return sum(len(t) for t in self.tables.values())
 
 
@@ -98,17 +114,28 @@ def build_extvp(
     vp: Dict[int, Table],
     threshold: float = 1.0,
     kinds: Tuple[str, ...] = KINDS,
+    backend: str = "numpy",
+    device=None,
+    pair_batch: int = 512,
 ) -> ExtVPBuild:
     """Compute the ExtVP schema over a VP catalog.
 
     ``threshold`` is the SF threshold τ of §5.3: tables with SF > τ are not
     materialized (their statistics still are).  τ=1.0 reproduces the
     unthresholded schema (SF=1 identity tables are never stored, exactly
-    as in the paper — "red tables" of Fig. 10).  The build runs on the
-    host.
+    as in the paper — "red tables" of Fig. 10).
+
+    ``backend`` selects the build (module docstring): the ``"numpy"``
+    host loop or the ``"torch"`` pair-batched build on ``device`` (None
+    means ``"cuda"``), at most ``pair_batch`` pairs a launch.
     """
+    if backend not in BUILD_BACKENDS:
+        raise ValueError(f"unknown ExtVP build backend {backend!r}; "
+                         f"expected one of {BUILD_BACKENDS}")
     t0 = time.perf_counter()
     from repro_torch.core.extvp_build import build_extvp_planned
-    out = build_extvp_planned(vp, threshold=threshold, kinds=kinds)
+    out = build_extvp_planned(vp, threshold=threshold, kinds=kinds,
+                              backend=backend, device=device,
+                              pair_batch=pair_batch)
     out.build_seconds = time.perf_counter() - t0
     return out

@@ -12,22 +12,30 @@ VP tables, semi-join-reduce them into ExtVP with selectivity statistics
     res = eng.query("SELECT * WHERE { ?u wsdbm:follows ?v }")
     res.to_terms()
 
-The catalog is built on the host (the ``"numpy"`` build); the engines
-upload the tables each template scans to their device.  A dataset's
-``device`` is the default device of its engines; ``device=None`` means
-``"cuda"`` and raises when no CUDA device is present.  Tests pass
-``device="cpu"``.
+    # persist once, boot forever (repro_torch.store): save() writes the
+    # on-disk columnar store, load() memory-maps it lazily — no rebuild
+    ds.save("watdiv.store")
+    ds = Dataset.load("watdiv.store")
+
+A dataset's ``device`` is where its ExtVP is built (``build_backend=
+"torch"``, the default: the semi-join kernel on a CUDA device) and the
+default device of its engines; ``device=None`` means ``"cuda"`` and
+raises when no CUDA device is present.  Tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.stats import Catalog, build_catalog
-from repro_torch.core.vp import KINDS
+from repro_torch.core.stats import Catalog, _m2, build_catalog
+from repro_torch.core.table import Table
+from repro_torch.core.vp import KINDS, ExtVPBuild
 from repro_torch.engine.engine import Engine, resolve_device
 
 __all__ = ["Dataset"]
@@ -36,13 +44,26 @@ __all__ = ["Dataset"]
 @dataclass
 class Dataset:
     """A loaded RDF graph: dictionary + TT + VP + ExtVP(τ) + statistics,
-    and the device its engines run on by default."""
+    and the device its engines (and its ``"torch"`` builds) run on.
+
+    ``build_backend`` selects the ExtVP build — ``"torch"``, the
+    pair-batched build on ``device``, or ``"numpy"``, the host loop
+    (:mod:`repro_torch.core.extvp_build`); both build byte-identical
+    catalogs, and the choice also seeds :meth:`append_triples`.
+    """
 
     catalog: Catalog
     dictionary: object = None          # repro_torch.rdf.Dictionary
     schema: object = None              # Optional[WatDivSchema]
     device: torch.device = None
+    build_backend: str = "torch"
+    #: directory of the on-disk store this dataset is attached to (set by
+    #: :meth:`load` / :meth:`save`); appends journal delta segments there
+    store_path: Optional[str] = field(default=None, repr=False)
     _engines: Dict[tuple, Engine] = field(default_factory=dict, repr=False)
+    #: accounting of the last append_triples call (pairs reused vs rebuilt)
+    last_append_report: Optional[Dict[str, int]] = field(default=None,
+                                                         repr=False)
 
     def __post_init__(self) -> None:
         if self.dictionary is None:
@@ -55,6 +76,7 @@ class Dataset:
                      threshold: float = 1.0,
                      kinds: Tuple[str, ...] = KINDS,
                      with_extvp: bool = True,
+                     build_backend: str = "torch",
                      device=None) -> "Dataset":
         """Build the full store from (s, p, o) string triples."""
         from repro_torch.rdf.dictionary import Dictionary
@@ -62,14 +84,17 @@ class Dataset:
         d = Dictionary()
         tt = d.encode_triples(list(triples))
         cat = build_catalog(tt, d, threshold=threshold, kinds=kinds,
-                            with_extvp=with_extvp)
-        return cls(catalog=cat, dictionary=d, device=device)
+                            with_extvp=with_extvp,
+                            build_backend=build_backend, device=device)
+        return cls(catalog=cat, dictionary=d, device=device,
+                   build_backend=build_backend)
 
     @classmethod
     def watdiv(cls, scale: float = 1.0, seed: int = 0,
                threshold: float = 1.0,
                kinds: Tuple[str, ...] = KINDS,
                with_extvp: bool = True,
+               build_backend: str = "torch",
                device=None) -> "Dataset":
         """Generate a WatDiv-like graph (paper §7) and build its store."""
         from repro_torch.rdf.generator import WatDivConfig, generate_watdiv
@@ -77,8 +102,178 @@ class Dataset:
         tt, d, sch = generate_watdiv(WatDivConfig(scale_factor=scale,
                                                   seed=seed))
         cat = build_catalog(tt, d, threshold=threshold, kinds=kinds,
-                            with_extvp=with_extvp)
-        return cls(catalog=cat, dictionary=d, schema=sch, device=device)
+                            with_extvp=with_extvp,
+                            build_backend=build_backend, device=device)
+        return cls(catalog=cat, dictionary=d, schema=sch, device=device,
+                   build_backend=build_backend)
+
+    @classmethod
+    def from_ntriples(cls, path: str, threshold: float = 1.0,
+                      kinds: Tuple[str, ...] = KINDS,
+                      with_extvp: bool = True,
+                      build_backend: str = "torch",
+                      device=None) -> "Dataset":
+        """Load an N-Triples file (the paper's input format)."""
+        from repro_torch.rdf.ntriples import parse_ntriples
+        with open(path) as f:
+            triples = parse_ntriples(f.read())
+        return cls.from_triples(triples, threshold=threshold, kinds=kinds,
+                                with_extvp=with_extvp,
+                                build_backend=build_backend, device=device)
+
+    # -- incremental load -----------------------------------------------------
+    def append_triples(self, triples: Iterable[Tuple[str, str, str]],
+                       journal: bool = True) -> Dict[str, int]:
+        """Append (s, p, o) string triples and incrementally refresh the
+        store: only the VP tables of predicates that received rows are
+        rebuilt, and only the ExtVP pairs those predicates touch — or
+        whose probe-side entity range the new build keys intersect — are
+        re-semi-joined (:func:`repro_torch.core.extvp_build
+        .incremental_pairs`) with the dataset's ``build_backend``, on its
+        device for the ``"torch"`` build.  The resulting catalog is equivalent to a from-scratch
+        build over the concatenated triples.
+
+        Cached engines are dropped, and with them the tables they hold
+        on their device (their prepared plans scan the old tables);
+        re-fetch them via :meth:`engine` afterwards.  Returns the
+        pair-accounting report, also kept as ``last_append_report``.
+
+        When the dataset is attached to an on-disk store (``store_path``
+        set by :meth:`load` / :meth:`save`), the appended triples are
+        also journaled as a delta segment so the next :meth:`load`
+        replays them through this same incremental path;
+        ``journal=False`` suppresses that (used by replay itself).
+        :meth:`compact` folds accumulated segments back into the base.
+        """
+        triples = list(triples)
+        cat = self.catalog
+        if not triples:
+            report = {"pairs": len(cat.extvp.sf), "reused": len(cat.extvp.sf),
+                      "range_skipped": 0, "recomputed": 0, "evaluated": 0}
+            self.last_append_report = report
+            return report
+        from repro_torch.core.extvp_build import incremental_pairs
+        new_tt = self.dictionary.encode_triples(triples)
+        tt = np.concatenate([cat.tt, new_tt])
+        touched = {int(p) for p in np.unique(new_tt[:, 1])}
+
+        t0 = time.perf_counter()
+        vp = dict(cat.vp)
+        for p in sorted(touched):
+            rows = new_tt[new_tt[:, 1] == p][:, [0, 2]]
+            if p in vp:
+                rows = np.concatenate([vp[p].rows, rows])
+            vp[p] = Table.from_unsorted(rows)
+        # distinct-count statistics: recompute only the touched predicates
+        # (their tables are materialized above anyway); catalogs without
+        # the stats (version-1 stores) stay without them — back-filling
+        # would force-load every lazy table
+        distinct_s = distinct_o = m2_s = m2_o = None
+        if cat.distinct_s is not None and cat.distinct_o is not None:
+            distinct_s, distinct_o = dict(cat.distinct_s), dict(cat.distinct_o)
+            for p in touched:
+                distinct_s[p] = int(len(vp[p].unique_s))
+                distinct_o[p] = int(len(vp[p].unique_o))
+        if cat.m2_s is not None and cat.m2_o is not None:
+            m2_s, m2_o = dict(cat.m2_s), dict(cat.m2_o)
+            for p in touched:
+                m2_s[p] = _m2(vp[p].rows[:, 0])
+                m2_o[p] = _m2(vp[p].rows[:, 1])
+        vp_secs = cat.vp_build_seconds + (time.perf_counter() - t0)
+
+        # A store built with with_extvp=False has no pair statistics to
+        # extend — keep it ExtVP-less instead of back-filling the schema.
+        t0 = time.perf_counter()
+        if cat.with_extvp:
+            ext, report = incremental_pairs(
+                cat.extvp, cat.vp, vp, touched,
+                threshold=cat.extvp.threshold, kinds=tuple(cat.extvp.kinds),
+                backend=self.build_backend, device=self.device)
+        else:
+            ext = ExtVPBuild(threshold=cat.extvp.threshold,
+                             kinds=tuple(cat.extvp.kinds),
+                             backend=self.build_backend)
+            report = {"pairs": 0, "reused": 0, "range_skipped": 0,
+                      "recomputed": 0, "evaluated": 0}
+        ext.build_seconds = time.perf_counter() - t0
+        self.catalog = Catalog(tt=tt, vp=vp, extvp=ext,
+                               dictionary=self.dictionary,
+                               vp_build_seconds=vp_secs,
+                               with_extvp=cat.with_extvp,
+                               store=cat.store,
+                               distinct_s=distinct_s, distinct_o=distinct_o,
+                               m2_s=m2_s, m2_o=m2_o)
+        self._engines.clear()
+        self.last_append_report = report
+        if journal and self.store_path is not None:
+            from repro_torch.store import append_segment, delta_stats
+            append_segment(self.store_path, triples)
+            if self.catalog.store is not None:
+                n, nbytes = delta_stats(self.store_path)
+                self.catalog.store.delta_segments = n
+                self.catalog.store.bytes_by_section["delta"] = nbytes
+        return report
+
+    # -- persistence (repro_torch.store) --------------------------------------
+    def save(self, path: Optional[str] = None) -> str:
+        """Persist the catalog as an on-disk columnar store at ``path``
+        (defaults to the attached ``store_path``).
+
+        Writes the versioned manifest, the dictionary, and raw
+        little-endian column files for TT / every VP table / every
+        materialized ExtVP table via the streaming writer
+        (:func:`repro_torch.store.write_store`), then clears any delta
+        journal at the target — the rewritten base supersedes it.  The
+        dataset becomes attached to ``path``: later :meth:`append_triples`
+        calls journal there and :meth:`load` restores this exact state.
+        """
+        path = os.fspath(path) if path is not None else self.store_path
+        if path is None:
+            raise ValueError("no path: pass save(path) or load the dataset "
+                             "from a store first")
+        from repro_torch.store import (StoreInfo, clear_segments,
+                                       section_bytes, write_store)
+        manifest = write_store(self.catalog, self.dictionary, path,
+                               build_backend=self.build_backend)
+        clear_segments(path)
+        self.catalog.store = StoreInfo(
+            path=path, bytes_by_section=section_bytes(manifest, path),
+            delta_segments=0)
+        self.store_path = path
+        return path
+
+    @classmethod
+    def load(cls, path: str, eager: bool = False, verify: bool = False,
+             device=None) -> "Dataset":
+        """Boot a dataset from an on-disk store — no build pipeline runs.
+
+        The base catalog comes up **lazy and zero-copy** by default:
+        only the manifest (statistics + dictionary) is parsed, and each
+        table ``np.memmap``-s its column file on first touch.
+        ``eager=True`` materializes everything now; ``verify=True``
+        CRC-checks each file when it is first read.  Any journaled delta
+        segments are then replayed through :meth:`append_triples` (the
+        incremental semi-join path, the ``"torch"`` build on ``device``),
+        so the result is equivalent to the pre-restart catalog.
+        """
+        from repro_torch.store import load_catalog, read_segments
+        path = os.fspath(path)
+        device = resolve_device(device)
+        cat, dictionary = load_catalog(path, eager=eager, verify=verify)
+        ds = cls(catalog=cat, dictionary=dictionary, device=device,
+                 store_path=path)
+        for seg in read_segments(path):
+            ds.append_triples(seg.triples, journal=False)
+        return ds
+
+    def compact(self) -> str:
+        """Fold the delta journal into the base store: rewrite the full
+        columnar base from the current (already replayed/appended)
+        catalog and drop the segments."""
+        if self.store_path is None:
+            raise ValueError("dataset is not attached to a store; "
+                             "call save(path) first")
+        return self.save(self.store_path)
 
     # -- engines --------------------------------------------------------------
     def engine(self, backend: str = "torch", device=None,

@@ -9,16 +9,20 @@ or the wrapper raises: there is no fallback.  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["join_probe", "launches", "reset_launches"]
+__all__ = ["join_probe", "semijoin_mask", "launches", "reset_launches"]
+
+#: threads of one block of the semi-join kernel (one probe key each)
+SEMIJOIN_THREADS = 256
 
 #: kernel name -> launches since the last reset
-launches: Dict[str, int] = {"join_probe": 0}
+launches: Dict[str, int] = {"join_probe": 0, "semijoin_membership": 0}
 
 
 def reset_launches() -> None:
@@ -35,6 +39,86 @@ def _join_probe_fn():
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _semijoin_fn():
+    lib = build.load("semijoin_membership")
+    fn = lib.semijoin_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_int32_column(fn: str, name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous 1-D int32 "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def semijoin_mask(probe: torch.Tensor, build_sorted: torch.Tensor,
+                  pairs: Optional[np.ndarray] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Semi-join membership for a batch of (probe, build) pairs in one
+    launch.
+
+    ``probe`` and ``build_sorted`` are ragged int32 key arrays; row j of
+    the int64 (P, 4) host array ``pairs`` is (probe_off, probe_len,
+    build_off, build_len), and ``build_sorted[build_off:+build_len]``
+    must be ascending.  ``pairs=None`` is a batch of one over the whole
+    of both.  Returns ``(mask, counts)``: ``mask`` uint8, the pairs'
+    masks end to end in pair order (pair j's starts at the sum of the
+    probe lengths before it), ``mask = probe key ∈ build segment``;
+    ``counts`` int64 (P,), the ones in each pair's mask.
+
+    On CUDA this is the hand-written kernel ``csrc/semijoin.cu``, which
+    replaces the TPU kernel
+    ``repro/kernels/semijoin.py::semijoin_membership_kernel``.
+    """
+    if pairs is None:
+        pairs = np.array([[0, probe.numel(), 0, build_sorted.numel()]],
+                         dtype=np.int64)
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 4)
+    if (pairs < 0).any() or \
+            (pairs[:, 0] + pairs[:, 1] > probe.numel()).any() or \
+            (pairs[:, 2] + pairs[:, 3] > build_sorted.numel()).any():
+        raise ValueError("semijoin_mask: a pair's segment lies outside "
+                         "the probe or build array")
+    if probe.device.type == "cpu" and build_sorted.device.type == "cpu":
+        return ref.semijoin_pairs_ref(probe, build_sorted, pairs)
+    if probe.device.type != "cuda" or probe.device != build_sorted.device:
+        raise ValueError(f"semijoin_mask: probe on {probe.device} and build "
+                         f"on {build_sorted.device}; both must be on one "
+                         "CUDA device (or both on the CPU)")
+    _check_int32_column("semijoin_mask", "probe", probe)
+    _check_int32_column("semijoin_mask", "build_sorted", build_sorted)
+    dev = probe.device
+    n_pairs = len(pairs)
+    out_off = np.concatenate([[0], np.cumsum(pairs[:, 1])]).astype(np.int64)
+    mask = torch.empty(int(out_off[-1]), dtype=torch.uint8, device=dev)
+    counts = torch.zeros(n_pairs, dtype=torch.int64, device=dev)
+    blocks = -(-pairs[:, 1] // SEMIJOIN_THREADS)
+    n_blocks = int(blocks.sum())
+    if n_blocks == 0:
+        return mask, counts
+    block_start = np.concatenate([[0], np.cumsum(blocks)[:-1]])
+    desc = torch.from_numpy(np.concatenate(
+        [pairs, out_off[:-1, None]], axis=1).astype(np.int64)).to(dev)
+    starts = torch.from_numpy(block_start.astype(np.int64)).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = _semijoin_fn()(probe.data_ptr(), build_sorted.data_ptr(),
+                                desc.data_ptr(), starts.data_ptr(), n_pairs,
+                                n_blocks, SEMIJOIN_THREADS, mask.data_ptr(),
+                                counts.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"semijoin kernel launch failed: CUDA error "
+                           f"{status}")
+    launches["semijoin_membership"] += 1
+    return mask, counts
 
 
 def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -54,10 +138,8 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
         raise ValueError(f"join_probe: probe on {probe.device} and build on "
                          f"{build_sorted.device}; both must be on one CUDA "
                          "device (or both on the CPU)")
-    for name, t in (("probe", probe), ("build_sorted", build_sorted)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"join_probe: {name} must be a contiguous 1-D "
-                             f"int32 tensor, got {t.dtype} {tuple(t.shape)}")
+    _check_int32_column("join_probe", "probe", probe)
+    _check_int32_column("join_probe", "build_sorted", build_sorted)
     lo = torch.empty_like(probe)
     cnt = torch.empty_like(probe)
     n_a, n_b = probe.numel(), build_sorted.numel()

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["join_probe_ref"]
+__all__ = ["join_probe_ref", "semijoin_membership_ref", "semijoin_pairs_ref"]
 
 
 def join_probe_ref(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -22,3 +23,33 @@ def join_probe_ref(probe: torch.Tensor, build_sorted: torch.Tensor
     lo = torch.searchsorted(build_sorted, probe, out_int32=True)
     hi = torch.searchsorted(build_sorted, probe, right=True, out_int32=True)
     return lo, hi - lo
+
+
+def semijoin_membership_ref(probe: torch.Tensor, build_sorted: torch.Tensor
+                            ) -> torch.Tensor:
+    """mask[i] = probe[i] ∈ build_sorted (int32 0/1); ``build_sorted``
+    ascending.  The pad sentinels (2^31-1 probe side, 2^31-2 build side)
+    differ, so padded lanes never match."""
+    lo = torch.searchsorted(build_sorted, probe, out_int32=True)
+    hi = torch.searchsorted(build_sorted, probe, right=True, out_int32=True)
+    return (hi > lo).to(torch.int32)
+
+
+def semijoin_pairs_ref(probe: torch.Tensor, build_sorted: torch.Tensor,
+                       pairs: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched semi-join of ``ops.semijoin_mask``, one pair at a time:
+    for row j = (probe_off, probe_len, build_off, build_len) of the int64
+    (P, 4) ``pairs``, the mask of ``probe[probe_off:+probe_len]`` against
+    ``build_sorted[build_off:+build_len]``.  Returns (mask uint8, the
+    pairs' masks end to end in pair order; counts int64 (P,))."""
+    masks, counts = [], []
+    for p_off, p_len, b_off, b_len in np.asarray(pairs, dtype=np.int64):
+        m = semijoin_membership_ref(probe[p_off:p_off + p_len],
+                                    build_sorted[b_off:b_off + b_len])
+        masks.append(m.to(torch.uint8))
+        counts.append(m.sum(dtype=torch.int64))
+    mask = torch.cat(masks) if masks else \
+        torch.zeros(0, dtype=torch.uint8, device=probe.device)
+    count = torch.stack(counts) if counts else \
+        torch.zeros(0, dtype=torch.int64, device=probe.device)
+    return mask, count

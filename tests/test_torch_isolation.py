@@ -31,6 +31,26 @@ print("BAD", bad)
 """
 
 
+_STORE_CHILD = r"""
+import sys, tempfile
+from repro_torch import Dataset
+from repro_torch.kernels import ops
+triples = [(f"e{i % 17}", f"p{i % 4}", f"e{(3 * i) % 19}") for i in range(200)]
+ds = Dataset.from_triples(triples[:180], threshold=0.25,
+                          build_backend="torch", device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    ds.save(tmp + "/s")
+    ds.append_triples(triples[180:])
+    loaded = Dataset.load(tmp + "/s", device="cpu")
+    rows = len(loaded.engine().query("SELECT * WHERE { ?a p0 ?b . ?b p1 ?c }"))
+    same = loaded.catalog.extvp.sf == ds.catalog.extvp.sf
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows, "SAME", same, "LAUNCHES", sum(ops.launches.values()))
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -42,6 +62,17 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_load_path_imports_neither_jax_nor_repro():
+    """Build with the ``"torch"`` build on the CPU, save, append, load
+    with delta replay and query, all through the port."""
+    out = subprocess.run([sys.executable, "-c", _STORE_CHILD], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "SAME True LAUNCHES 0" in out.stdout, out.stdout
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
 
 
