@@ -29,10 +29,26 @@ Phases (any failure exits non-zero and prints no result line):
    of the triples, save, append the last 1 %, load the store lazily
    (the journal replays on the card), and hold the catalog byte for
    byte against a from-scratch build over all of them, and a few
-   templates row for row against the in-memory dataset.
+   templates row for row against the in-memory dataset;
+6. the distributed engine (``repro_torch.core.distributed``).
+   6a: a world of one rank over NCCL at ``--scale``, with the kernels'
+   launch counts reset just before and read just after: the ExtVP build
+   with ``build_backend="distributed"``, byte-identical to the numpy
+   build, then every instance of the basic templates through
+   ``Engine(backend="distributed")``, single and batched, each result
+   equal as a multiset to the single-device card engine's (all but C1
+   and C2, whose static shuffle buckets do not fit on the card at one
+   rank: ``ONE_RANK_CUT``); the
+   bucket-count kernel (every shuffle) timed on the largest input this
+   path gave it.  6b: two ranks that share the card, spawned by this
+   script, over gloo at ``--compare-scale``: each loads the store phase
+   5 saved, builds ExtVP distributed (byte-identical to the numpy build)
+   and serves all 20 templates, single and batched, held against the
+   single-device card engine; a rank's failure fails the smoke.
 
-It prints one JSON line with the kernels' numbers, then the card's name
-and power limit, then ``{"ok": true, "device": {...}}`` as the last line.
+It prints one JSON line with phase 6's numbers, one with the kernels'
+numbers, then the card's name and power limit, then
+``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -41,8 +57,8 @@ import argparse
 import json
 import os
 import subprocess
+import shutil
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -51,10 +67,19 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 TPU_KERNEL = {"join_probe": "src/repro/kernels/mergejoin.py:40",
-              "semijoin_membership": "src/repro/kernels/semijoin.py:40"}
+              "semijoin_membership": "src/repro/kernels/semijoin.py:40",
+              "bucket_count": "src/repro/kernels/bucketcount.py:30"}
 KERNEL_SOURCE = {
     "join_probe": "src/repro_torch/kernels/csrc/join_probe.cu",
-    "semijoin_membership": "src/repro_torch/kernels/csrc/semijoin.cu"}
+    "semijoin_membership": "src/repro_torch/kernels/csrc/semijoin.cu",
+    "bucket_count": "src/repro_torch/kernels/csrc/bucketcount.cu"}
+PROBE_PAD = 2**31 - 1
+#: seconds the two ranks of phase 6b may take together
+RANKS_TIMEOUT_S = 600
+#: templates phase 6a leaves out: at one rank their shuffles' static
+#: buckets (four times a relation's 2^28 slots) do not fit on the card
+#: beside the catalog; phase 6b serves them at two ranks
+ONE_RANK_CUT = ("C1", "C2")
 
 
 def log(*a) -> None:
@@ -276,6 +301,89 @@ def phase_semijoin_kernel(ops, ref) -> None:
             f"{int(pairs[:, 1].sum())} probe keys)")
 
 
+def bucket_cases(gen: torch.Generator):
+    """(name, keys, valid, n_buckets) unit cases on the host."""
+    def keys_of(n):
+        return torch.randint(-2**31, PROBE_PAD, (n,), generator=gen,
+                             dtype=torch.int32)
+
+    cases = [("empty", keys_of(0), torch.zeros(0, dtype=torch.bool), 3)]
+    k = keys_of(5000)
+    cases.append(("all invalid", k, torch.zeros(5000, dtype=torch.bool), 6))
+    # UNBOUND (-1), A_NULL (-3), pads (valid and not)
+    k = torch.tensor([-1, -1, -3, 5, PROBE_PAD, PROBE_PAD, 7, -3],
+                     dtype=torch.int32)
+    v = torch.tensor([1, 1, 1, 1, 1, 0, 0, 1], dtype=torch.bool)
+    cases.append(("sentinels", k, v, 3))
+    for nb in (1, 2, 3, 6, 8, 256, 20000):
+        k = keys_of(100003)
+        k[::5] = -1
+        k[1::7] = -3
+        k[2::11] = PROBE_PAD
+        v = torch.rand(100003, generator=gen) < 0.8
+        cases.append((f"random, {nb} buckets", k, v, nb))
+    return cases
+
+
+def check_bucket(ops, ref, keys, valid, nb: int, what: str) -> int:
+    got = ops.bucket_count(keys, valid, nb)
+    torch.cuda.synchronize()
+    want = ref.bucket_count_ref(keys, valid, nb)
+    if got.dtype != torch.int32 or got.shape != (nb,):
+        raise AssertionError(f"bucket_count {what}: output not int32 ({nb},)")
+    err = int((got.long() - want.long()).abs().max()) if nb else 0
+    if err:
+        raise AssertionError(f"bucket_count {what}: kernel != plain "
+                             f"(max abs err {err})")
+    return err
+
+
+def bucket_numbers(ops, ref, keys, valid, nb: int) -> dict:
+    """Times and bound of the bucket count on one input.  The library
+    yardstick is ``torch.bincount`` over the destination column, which
+    one elementwise pass computes and is timed with."""
+    n = keys.numel()
+    ms = cuda_time_ms(lambda: ops.bucket_count(keys, valid, nb))
+    plain_ms = cuda_time_ms(lambda: ref.bucket_count_ref(keys, valid, nb))
+
+    def library():
+        dest = torch.where(valid & (keys != PROBE_PAD),
+                           (keys.long() & 0xFFFFFFFF) % nb, nb)
+        return torch.bincount(dest, minlength=nb + 1)[:nb]
+
+    library_ms = cuda_time_ms(library)
+    # bytes: each key (4 B) and its validity byte read once, the
+    # histogram written once; operations: two tests, a modulo and an add
+    # per row
+    bytes_ms = (5 * n + 4 * nb) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * n / SCALAR_OPS_PER_S * 1e3
+    return {"n": n, "n_buckets": nb, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_bucket_kernel(ops, ref) -> None:
+    gen = torch.Generator().manual_seed(2)
+    for what, k, v, nb in bucket_cases(gen):
+        check_bucket(ops, ref, k.cuda(), v.cuda(), nb, what)
+        log(f"  bucket_count == plain: {what} ({k.numel()} keys)")
+    n = 1 << 28
+    dev_gen = torch.Generator(device="cuda").manual_seed(n)
+    keys = torch.randint(-2**31, PROBE_PAD, (n,), generator=dev_gen,
+                         device="cuda", dtype=torch.int32)
+    valid = torch.rand(n, generator=dev_gen, device="cuda") < 0.75
+    for nb in (1, 2):
+        check_bucket(ops, ref, keys, valid, nb, f"2^28 keys, {nb} buckets")
+        bn = bucket_numbers(ops, ref, keys, valid, nb)
+        log(f"  bucket_count 2^28 keys, {nb} buckets: equal; kernel "
+            f"{bn['ms']:.4f} ms, plain {bn['plain_ms']:.4f} ms, "
+            f"torch.bincount {bn['library_ms']:.4f} ms, bound "
+            f"{bn['bound_ms']:.4f} ms ({bn['bound_by']}, "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del keys, valid
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -469,8 +577,9 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
             f"{len(s['rows'])} {s['batch_ms']:.1f} ms")
     for name in ("S1", "C1"):
         profile_query(eng, queries[name][0], name)
-    for k, v in launches.items():
-        if v <= 0:
+    # the bucket count runs on the distributed path only (phase 6a)
+    for k in ("join_probe", "semijoin_membership"):
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
     nums = {}
@@ -518,24 +627,30 @@ def semijoin_main_numbers(ops, ref, best, launches: int) -> dict:
     return dict(ln, launches=launches, max_abs_err=err)
 
 
-def phase_identity(ds, build_extvp) -> None:
+def same_extvp(want, got, what: str) -> None:
+    """Byte identity of two ExtVP builds; raises on the first difference."""
+    if want.sf != got.sf or want.sizes != got.sizes:
+        raise AssertionError(f"{what}: SF map or sizes != numpy build")
+    if set(want.tables) != set(got.tables):
+        raise AssertionError(f"{what}: materialized set != numpy build")
+    for k, t in want.tables.items():
+        if t.rows.tobytes() != got.tables[k].rows.tobytes():
+            raise AssertionError(f"{what}: rows of {k} != numpy build")
+
+
+def phase_identity(ds, build_extvp):
     """The numpy ExtVP build over the card build's VP tables must give a
     byte-identical ExtVP.  Both builds read the same sorted-unique
     columns, computed once with the VP statistics before either ran."""
     card = ds.catalog.extvp
     host = build_extvp(ds.catalog.vp, threshold=card.threshold,
                        kinds=card.kinds, backend="numpy")
-    if host.sf != card.sf or host.sizes != card.sizes:
-        raise AssertionError("card ExtVP: SF map or sizes != numpy build")
-    if set(host.tables) != set(card.tables):
-        raise AssertionError("card ExtVP: materialized set != numpy build")
-    for k, t in host.tables.items():
-        if t.rows.tobytes() != card.tables[k].rows.tobytes():
-            raise AssertionError(f"card ExtVP: rows of {k} != numpy build")
+    same_extvp(host, card, "card ExtVP")
     log(f"  ExtVP byte-identical to the numpy build: {len(card.sf)} pairs "
         f"(SF, sizes), {len(card.tables)} tables, "
         f"{card.total_tuples()} rows; ExtVP build on the card "
         f"{card.build_seconds:.3f} s, numpy build {host.build_seconds:.3f} s")
+    return host
 
 
 # ---------------------------------------------------------------------------
@@ -615,51 +730,52 @@ def same_catalog(a, b, what: str) -> None:
             raise AssertionError(f"{what}: ExtVP rows of {k} differ")
 
 
-def phase_store(ds, queries, ops, Dataset, root: str) -> None:
+def phase_store(ds, queries, ops, Dataset, root: str) -> str:
     """Build on the first 99 % of ``ds``'s triples (as strings), save,
     append the last 1 %, load the store lazily (the journal replays on
     the card) and hold it against a from-scratch build over all of them
-    and, on a few templates, against the in-memory dataset."""
+    and, on a few templates, against the in-memory dataset.  Returns the
+    store's path (base and journal), which phase 6b loads."""
     triples = ds.dictionary.decode_rows(np.asarray(ds.catalog.tt))
     cut = len(triples) - len(triples) // 100
     ops.reset_launches()
     t = time.perf_counter()
     mem = Dataset.from_triples(triples[:cut], threshold=0.25)
     base_s = time.perf_counter() - t
+    path = os.path.join(root, "store")
+    shutil.rmtree(path, ignore_errors=True)
     os.makedirs(root, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=root) as tmp:
-        path = os.path.join(tmp, "store")
-        t = time.perf_counter()
-        mem.save(path)
-        save_s = time.perf_counter() - t
-        t = time.perf_counter()
-        report = mem.append_triples(triples[cut:])
-        append_s = time.perf_counter() - t
-        t = time.perf_counter()
-        loaded = Dataset.load(path)
-        load_s = time.perf_counter() - t
-        vp, ext = loaded.catalog.vp, loaded.catalog.extvp.tables
-        lazy = f"{ext.n_loaded} of {len(ext)} ExtVP tables loaded" \
-            if hasattr(ext, "n_loaded") else "ExtVP not lazy"
-        if loaded.catalog.store is None or \
-                loaded.storage_report()["delta_segments"] != 1:
-            raise AssertionError("loaded store carries no delta segment")
-        launches = ops.launches["semijoin_membership"]
-        t = time.perf_counter()
-        scratch = Dataset.from_triples(triples, threshold=0.25)
-        scratch_s = time.perf_counter() - t
-        same_catalog(scratch.catalog, loaded.catalog, "load + replay")
-        same_catalog(scratch.catalog, mem.catalog, "append")
-        n = 0
-        for name in ("S1", "L2", "F3", "C3"):
-            for q in queries[name]:
-                a = loaded.engine().query(q)
-                b = mem.engine().query(q)
-                if a.cols != b.cols or not np.array_equal(a.data, b.data):
-                    raise AssertionError(f"{name}: loaded store != "
-                                         "in-memory dataset")
-                n += 1
-        del loaded, mem, scratch, vp, ext
+    t = time.perf_counter()
+    mem.save(path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    report = mem.append_triples(triples[cut:])
+    append_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = Dataset.load(path)
+    load_s = time.perf_counter() - t
+    vp, ext = loaded.catalog.vp, loaded.catalog.extvp.tables
+    lazy = f"{ext.n_loaded} of {len(ext)} ExtVP tables loaded" \
+        if hasattr(ext, "n_loaded") else "ExtVP not lazy"
+    if loaded.catalog.store is None or \
+            loaded.storage_report()["delta_segments"] != 1:
+        raise AssertionError("loaded store carries no delta segment")
+    launches = ops.launches["semijoin_membership"]
+    t = time.perf_counter()
+    scratch = Dataset.from_triples(triples, threshold=0.25)
+    scratch_s = time.perf_counter() - t
+    same_catalog(scratch.catalog, loaded.catalog, "load + replay")
+    same_catalog(scratch.catalog, mem.catalog, "append")
+    n = 0
+    for name in ("S1", "L2", "F3", "C3"):
+        for q in queries[name]:
+            a = loaded.engine().query(q)
+            b = mem.engine().query(q)
+            if a.cols != b.cols or not np.array_equal(a.data, b.data):
+                raise AssertionError(f"{name}: loaded store != "
+                                     "in-memory dataset")
+            n += 1
+    del loaded, mem, scratch, vp, ext
     if launches <= 0:
         raise AssertionError("no semijoin launch in build, append or replay")
     log(f"  {len(triples)} triples: base build on {cut} {base_s:.1f} s, "
@@ -668,6 +784,275 @@ def phase_store(ds, queries, ops, Dataset, root: str) -> None:
         f"{load_s:.2f} s ({lazy} after replay), scratch build "
         f"{scratch_s:.1f} s; catalog byte-identical to scratch; {n} "
         f"results equal row for row; semijoin launches {launches}")
+    return path
+
+# ---------------------------------------------------------------------------
+# phase 6: the distributed engine
+# ---------------------------------------------------------------------------
+
+def canon(rows: np.ndarray) -> torch.Tensor:
+    """The rows on the card in lexicographic order: one form per
+    multiset (chained stable sorts, last column first)."""
+    t = torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+    if t.shape[0] < 2 or t.shape[1] == 0:
+        return t
+    order = torch.argsort(t[:, -1], stable=True)
+    for j in range(t.shape[1] - 2, -1, -1):
+        order = order[torch.argsort(t[order, j], stable=True)]
+    return t[order]
+
+
+def same_multiset(a, b) -> bool:
+    if a.cols != b.cols or a.data.shape != b.data.shape:
+        return False
+    return bool(torch.equal(canon(a.data), canon(b.data)))
+
+
+class BucketRecorder:
+    """Keeps the largest input the main path hands the bucket-count
+    kernel, so the kernel can be timed on it afterwards.  It calls the
+    wrapper unchanged; the launch count stays the wrapper's."""
+
+    def __init__(self, dist_mod):
+        self.mod = dist_mod
+        self.inner = dist_mod.ops.bucket_count
+        self.best = None
+        self.shapes = {}
+
+    def __call__(self, keys, valid, n_buckets):
+        key = (keys.numel(), n_buckets)
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        if self.best is None or keys.numel() > self.best[0].numel():
+            self.best = (keys.clone(), valid.clone(), n_buckets)
+        return self.inner(keys, valid, n_buckets)
+
+    def __enter__(self):
+        self.mod.ops = _OpsShim(self.mod.ops, bucket_count=self)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ops = self.mod.ops.base
+
+
+def serve_distributed(deng, eng, queries, reps: int, order):
+    """Every instance through the distributed engine's ``query`` (cold,
+    then ``reps`` warm passes) and each template's instances through its
+    ``query_batch``; every result must equal the single-device engine
+    ``eng``'s as a multiset.  Returns per-template timings."""
+    stats = {}
+    for name in order:
+        insts = queries[name]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        single = [deng.query(q) for q in insts]
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        lat = []
+        for _ in range(reps):
+            for q in insts:
+                t = time.perf_counter()
+                deng.query(q)
+                lat.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        batched = deng.query_batch(insts)
+        batch_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for q, a, b in zip(insts, single, batched):
+            want = eng.query(q)
+            if not same_multiset(a, want) or not same_multiset(b, want):
+                raise AssertionError(f"{name}: distributed engine != "
+                                     "single-device card engine")
+            del want
+        stats[name] = {"rows": [len(r) for r in single], "lat": lat,
+                       "cold_ms": cold_ms, "batch_ms": batch_ms,
+                       "peak_gib": peak}
+        del single, batched
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
+                   build_extvp, Engine, here: str):
+    """6a: a world of one rank over NCCL, on the main path's dataset."""
+    import torch.distributed as dist
+    rdv = os.path.join(here, "build", "smoke_nccl_rendezvous")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        ops.reset_launches()
+        dmod.reset_exchanges()
+        with BucketRecorder(dmod) as brec:
+            t = time.perf_counter()
+            ext = build_extvp(ds.catalog.vp, threshold=host_ext.threshold,
+                              kinds=host_ext.kinds, backend="distributed")
+            build_s = time.perf_counter() - t
+            deng = Engine(ds, backend="distributed")
+            order = [n for n in queries if n not in ONE_RANK_CUT]
+            t = time.perf_counter()
+            stats = serve_distributed(deng, eng, queries, args.reps, order)
+            serve_s = time.perf_counter() - t
+        launches = dict(ops.launches)
+        ex = dict(dmod.exchanges)
+        same_extvp(host_ext, ext, "distributed ExtVP (one rank)")
+        log(f"  distributed ExtVP build (one rank) {build_s:.3f} s, "
+            f"byte-identical to the numpy build ({len(ext.sf)} pairs, "
+            f"{len(ext.tables)} tables)")
+        log(f"  served {sum(len(queries[n]) for n in order)} queries x "
+            f"{1 + args.reps} + {len(order)} batches through the "
+            f"distributed engine in {serve_s:.1f} s, every result equal "
+            f"to the single-device card engine's; launches {launches}; "
+            f"exchanges {ex}")
+        for name in ONE_RANK_CUT:
+            ex_s = eng.prepare(queries[name][0]).executor
+            width, top = len(ex_s._pipe_cols), max(ex_s.caps)
+            log(f"  {name} left out at one rank: its single-device "
+                f"relations reach {top} slots of up to {width} columns; "
+                f"one rank's static buckets are 4x a relation's slots, so "
+                f"a shuffle of such a relation needs up to "
+                f"{2 * 4 * top * width * 4 / 2**30:.0f} GiB of send and "
+                f"receive buffers beside the relation and the catalog")
+        for name in order:
+            st = stats[name]
+            log(f"  {name}: rows {st['rows']}, p50 {p(st['lat'], 50):.3f} ms, "
+                f"max {max(st['lat']):.3f} ms of {len(st['lat'])} warm "
+                f"queries, cold {st['cold_ms']:.1f} ms, batch of "
+                f"{len(st['rows'])} {st['batch_ms']:.1f} ms, peak device "
+                f"memory {st['peak_gib']:.2f} GiB")
+        for name in ("S1", "F1"):
+            profile_query(deng, queries[name][0], f"{name} distributed")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the "
+                                     "distributed path")
+        if ex["all_to_all"] <= 0:
+            raise AssertionError("the distributed path made no exchange")
+        keys, valid, nb = brec.best
+        shapes = sorted(brec.shapes.items(), key=lambda kv: -kv[0][0])[:5]
+        log(f"  largest bucket_count inputs (keys, buckets): count: {shapes}")
+        err = check_bucket(ops, ref, keys, valid, nb, "main-path input")
+        bn = bucket_numbers(ops, ref, keys, valid, nb)
+        log(f"  bucket_count on the main path's largest input ({bn['n']} "
+            f"keys, {nb} bucket): equal; kernel {bn['ms']:.4f} ms, plain "
+            f"{bn['plain_ms']:.4f} ms, torch.bincount "
+            f"{bn['library_ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms "
+            f"({bn['bound_by']})")
+        del deng, brec, keys, valid
+        numbers = {"backend": "nccl", "ranks": 1, "scale": args.scale,
+                   "build_s": build_s, "exchanges": ex["all_to_all"],
+                   "buffer_bytes": ex["buffer_bytes"],
+                   "bucket_count_launches": launches["bucket_count"],
+                   "p50_ms": {n: p(stats[n]["lat"], 50) for n in order}}
+        return dict(bn, launches=launches["bucket_count"],
+                    max_abs_err=err), numbers
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(args, store: str, queries_file: str, here: str):
+    """6b: two ranks of this script that share the card, over gloo."""
+    build = os.path.join(here, "build")
+    rdv = os.path.join(build, "smoke_gloo_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    ranks = []
+    for rank in range(2):
+        out = os.path.join(build, f"smoke_rank{rank}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        logf = os.path.join(build, f"smoke_rank{rank}.log")
+        with open(logf, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 str(rank), "--world", "2", "--store", store,
+                 "--queries", queries_file, "--rendezvous", rdv,
+                 "--out", out], stdout=f, stderr=subprocess.STDOUT)
+        ranks.append((proc, logf, out))
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        for proc, _, _ in ranks:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc, _, _ in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for rank, (proc, logf, out) in enumerate(ranks):
+        with open(logf) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"rank {rank} of phase 6b failed (exit "
+                                 f"{proc.returncode}):\n{text[-6000:]}")
+        for line in text.splitlines():
+            log(f"  rank {rank}: {line}")
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_main(args) -> int:
+    """One rank of phase 6b (run by :func:`phase_two_ranks`)."""
+    import datetime
+    import torch.distributed as dist
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    from repro_torch import Dataset, Engine
+    from repro_torch.core import distributed as dmod
+    from repro_torch.core.vp import build_extvp
+    from repro_torch.kernels import ops
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{args.rendezvous}", rank=args.rank,
+        world_size=args.world,
+        timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        with open(args.queries) as f:
+            queries = json.load(f)
+        t = time.perf_counter()
+        ds = Dataset.load(args.store)
+        load_s = time.perf_counter() - t
+        ops.reset_launches()
+        dmod.reset_exchanges()
+        cat = ds.catalog
+        t = time.perf_counter()
+        ext = build_extvp(cat.vp, threshold=cat.extvp.threshold,
+                          kinds=cat.extvp.kinds, backend="distributed")
+        build_s = time.perf_counter() - t
+        same_extvp(build_extvp(cat.vp, threshold=cat.extvp.threshold,
+                               kinds=cat.extvp.kinds, backend="numpy"),
+                   ext, f"distributed ExtVP (rank {args.rank} of 2)")
+        deng, eng = Engine(ds, backend="distributed"), ds.engine()
+        n = 0
+        t = time.perf_counter()
+        for name, insts in queries.items():
+            single = [deng.query(q) for q in insts]
+            batched = deng.query_batch(insts)
+            for q, a, b in zip(insts, single, batched):
+                want = eng.query(q)
+                if not same_multiset(a, want) or not same_multiset(b, want):
+                    raise AssertionError(f"{name}: distributed engine != "
+                                         "single-device card engine")
+                n += 2
+        serve_s = time.perf_counter() - t
+        res = {"rank": args.rank, "n_triples": ds.n_triples, "load_s": load_s,
+               "build_s": build_s, "serve_s": serve_s, "results_equal": n,
+               "exchanges": dmod.exchanges["all_to_all"],
+               "rows_sent": dmod.exchanges["rows_sent"],
+               "buffer_bytes": dmod.exchanges["buffer_bytes"],
+               "launches": dict(ops.launches)}
+        if min(res["launches"].values()) <= 0 or res["exchanges"] <= 0:
+            raise AssertionError(f"rank {args.rank}: a kernel or the "
+                                 f"exchange never ran: {res}")
+        print(json.dumps(res), flush=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -677,13 +1062,21 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3,
                     help="warm passes over every instance for latencies")
+    # one rank of phase 6b (the script starts these itself)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    for name in ("--store", "--queries", "--rendezvous", "--out"):
+        ap.add_argument(name, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.rank is not None:
+        return rank_main(args)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch import Dataset
+    from repro_torch import Dataset, Engine
+    from repro_torch.core import distributed as dmod
     from repro_torch.core import extvp_build as eb
     from repro_torch.core import jexec
     from repro_torch.core.vp import build_extvp
@@ -700,13 +1093,19 @@ def main() -> int:
     log("[2] kernels against their plain versions")
     phase_kernels(ops, ref)
     phase_semijoin_kernel(ops, ref)
+    phase_bucket_kernel(ops, ref)
     log("[3] main path")
     nums, ds, eng, queries = phase_main(args, ops, ref, jexec, eb, Dataset,
                                         basic_queries)
-    phase_identity(ds, build_extvp)
+    host_ext = phase_identity(ds, build_extvp)
     log(f"[4] card against CPU at scale {args.scale}")
     compare(ds, eng, queries, ops, skip={"C1", "C2"})
-    del ds, eng, queries
+    log(f"[6a] the distributed engine, one rank over NCCL, scale "
+        f"{args.scale}")
+    nums["bucket_count"], one_rank = phase_one_rank(
+        args, ds, eng, host_ext, queries, ops, ref, dmod, build_extvp,
+        Engine, here)
+    del ds, eng, queries, host_ext
     torch.cuda.empty_cache()
     log(f"[4] card against CPU at scale {args.compare_scale}")
     ds = Dataset.watdiv(scale=args.compare_scale, seed=args.seed,
@@ -714,8 +1113,24 @@ def main() -> int:
     queries = basic_queries(ds.schema, seed=args.seed)
     compare(ds, ds.engine(), queries, ops)
     log(f"[5] append, save and load at scale {args.compare_scale}")
-    phase_store(ds, queries, ops, Dataset,
-                os.path.join(here, "build", "smoke_store"))
+    store = phase_store(ds, queries, ops, Dataset,
+                        os.path.join(here, "build", "smoke_store"))
+    queries_file = os.path.join(here, "build", "smoke_queries.json")
+    with open(queries_file, "w") as f:
+        json.dump(queries, f)
+    del ds, queries
+    torch.cuda.empty_cache()
+    log(f"[6b] the distributed engine, two ranks sharing the card over "
+        f"gloo, scale {args.compare_scale}")
+    ranks = phase_two_ranks(args, store, queries_file, here)
+    print(json.dumps({"phase6": {"one_rank": one_rank, "two_ranks": {
+        "backend": "gloo", "ranks": 2, "scale": args.compare_scale,
+        "build_s": [r["build_s"] for r in ranks],
+        "exchanges": [r["exchanges"] for r in ranks],
+        "rows_sent": [r["rows_sent"] for r in ranks],
+        "buffer_bytes": [r["buffer_bytes"] for r in ranks],
+        "results_equal": [r["results_equal"] for r in ranks]}}}),
+        flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

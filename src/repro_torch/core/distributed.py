@@ -1,0 +1,848 @@
+"""Distributed query engine over ``torch.distributed``.
+
+This maps S2RDF's Spark execution model onto a process group, one rank
+per device, every rank running the same program on its own shard:
+
+* **Storage partitioning.** Every VP/ExtVP table is hash-partitioned by
+  subject id (``s % n_shards``) across the ranks — the analogue of HDFS
+  blocks and Spark's hash partitioning.  Each rank keeps the host copy of
+  the sharding and uploads only its own shard.  An optional
+  object-partitioned copy (``dual_partition=True``) removes the shuffle
+  for object-keyed probes.
+
+* **Co-partitioned joins.** A join whose key both sides are already
+  partitioned by runs locally with no exchange — subject-subject joins
+  over s-partitioned tables, which is why star patterns make no shuffle.
+
+* **Shuffle joins.** Otherwise the engine *repartitions* the relation(s)
+  by the join key: rows go to rank ``uint32(key) % n_shards`` through
+  fixed-capacity per-destination buckets and one ``all_to_all_single`` —
+  a static-shape Spark shuffle.  The per-destination counts come from
+  the hand-written bucket-count kernel (:func:`repro_torch.kernels.ops
+  .bucket_count`).
+
+Every rank runs the operators of :mod:`repro_torch.core.jexec` (the join
+probe in its CUDA kernel); results stay sharded until ``run`` gathers
+them.  This is the PyTorch counterpart of the reference's ``shard_map``
+engine: the same names, capacity seeds, overflow protocol and row order
+(shards concatenated in rank order).  Collectives are issued in one
+order on every rank, because the program's control flow depends only on
+the plan and the capacity vector, and the capacity vector is the same on
+every rank (the overflow flags are all-reduced before the host reads
+them).
+
+Backends: NCCL on the card, gloo on the CPU.  gloo also takes CUDA
+tensors in ``all_to_all_single``, ``all_gather`` and ``all_reduce``
+(checked on the H100), so ranks that share one card exchange over gloo
+with no staging here.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.algebra import is_var
+from repro_torch.core.compiler import (
+    BGPSeg, CorePlan, CoreSeg, EmptySeg, FilterSeg, ScanStep,
+    core_filter_exprs,
+)
+from repro_torch.core.jexec import (
+    JBindings, bounds_from_plan, device_distinct, device_filter, device_join,
+    device_left_join, device_order, device_project, device_resize,
+    device_scan, device_scan_tt, device_slice, device_union, double_caps,
+    prepare_value_keys, _compact, _exec_cols, _false, _mod_cap_seed,
+    _scalar, _step_meta, _tt_meta, _valid_mask,
+)
+from repro_torch.core.modifiers import ModifierSpine, filter_const_slots
+from repro_torch.core.stats import Catalog
+from repro_torch.core.table import Table, round_up_pow2
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.rdf.dictionary import PAD
+
+__all__ = ["DistBindings", "DistributedExecutor", "shard_table",
+           "repartition", "extvp_pair_masks_sharded", "exchanges",
+           "reset_exchanges"]
+
+_I32 = torch.int32
+_I64 = torch.int64
+
+#: ``all_to_all``: exchanges (``all_to_all_single`` calls) this process
+#: made; ``buffer_bytes``: the bytes of their send buffers (static
+#: buckets, PAD included); ``rows_sent``: rows this rank put in other
+#: ranks' buckets, read at each launch's host sync
+exchanges: Dict[str, int] = {"all_to_all": 0, "buffer_bytes": 0,
+                             "rows_sent": 0}
+
+
+def reset_exchanges() -> None:
+    for k in exchanges:
+        exchanges[k] = 0
+
+
+def _require_initialized() -> None:
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "the distributed engine needs an initialized torch.distributed "
+            "process group: call torch.distributed.init_process_group(...) "
+            "first (nccl on the card, gloo on the CPU)")
+
+
+def _all_gather_cat(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on all ranks), concatenated along
+    dim 0 in rank order.  An empty tensor needs no collective: its shape,
+    the same on every rank, is the whole answer."""
+    size = dist.get_world_size(group)
+    if t.numel() == 0:
+        return t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# Host-side table sharding (storage layout)
+# ---------------------------------------------------------------------------
+
+def shard_table(table, n_shards: int, by: int = 0,
+                min_cap: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+    """Hash-partition rows by column ``by``; returns (rows[S, cap, k], n[S]).
+
+    Accepts a :class:`repro_torch.core.table.Table` or a raw ``(N, k)``
+    int32 array (the triples table of unbound-predicate scans)."""
+    rows = table.rows if isinstance(table, Table) else np.asarray(table)
+    k = rows.shape[1]
+    dest = rows[:, by].astype(np.int64) % n_shards
+    counts = np.bincount(dest, minlength=n_shards)
+    cap = round_up_pow2(int(counts.max()) if len(rows) else 1, min_cap)
+    out = np.full((n_shards, cap, k), PAD, dtype=np.int32)
+    ns = np.zeros(n_shards, dtype=np.int32)
+    order = np.argsort(dest, kind="stable")
+    sorted_rows, sorted_dest = rows[order], dest[order]
+    starts = np.searchsorted(sorted_dest, np.arange(n_shards))
+    ends = np.searchsorted(sorted_dest, np.arange(n_shards), side="right")
+    for i in range(n_shards):
+        k = ends[i] - starts[i]
+        out[i, :k] = sorted_rows[starts[i]:ends[i]]
+        ns[i] = k
+    return out, ns
+
+
+# ---------------------------------------------------------------------------
+# Repartitioning (the static-shape Spark shuffle)
+# ---------------------------------------------------------------------------
+
+def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
+                out_cap: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Exchange rows so that ``uint32(row.key) % n_shards == rank``
+    afterwards.  ``data`` (cap, k) holds this rank's rows, the first ``n``
+    valid.  Returns ``(rows[out_cap, k], n, overflow, sent)``: ``sent``
+    (int64, on the device) counts the rows this rank put in other ranks'
+    buckets; the rest is the reference's return value.
+
+    Buckets are static, as in the reference: ``bucket_cap`` rows for
+    every destination, so the exchange is one ``all_to_all_single`` of
+    equal splits and needs no host sync.  The bucket-count kernel gives
+    the rows bound for each destination; their exclusive prefix sum
+    gives each destination group's start in the stable sort by
+    destination, so a row's slot in its bucket is its rank in that sort
+    minus its group's start.  A destination with more than
+    ``bucket_cap`` rows sets ``overflow`` (its extra rows are not
+    written) and the host retries with larger capacities.  The reference
+    also reduces the flag across ranks here (``pmax``); the executor
+    all-reduces every step's flag once per launch, which covers it."""
+    n_shards = dist.get_world_size(group)
+    cap, k = data.shape
+    dev = data.device
+    valid = _valid_mask(cap, n)
+    key = data[:, key_col].contiguous()
+    # a valid row never carries the probe pad, so the kernel's pad rule
+    # drops nothing that repartition sends
+    counts = ops.bucket_count(key, valid, n_shards).to(_I64)
+    dest = torch.where(valid, (key.to(_I64) & 0xFFFFFFFF) % n_shards,
+                       n_shards)
+    bucket_cap = max(16, round_up_pow2(2 * cap // n_shards + 16))
+    order = torch.argsort(dest, stable=True)
+    sdest = dest[order]
+    ends = torch.cumsum(counts, 0)
+    # group starts; the invalid rows (dest == n_shards) start after all
+    starts = torch.cat([ends - counts, ends[-1:]])
+    rank = torch.arange(cap, dtype=_I64, device=dev) - starts[sdest]
+    overflow = (counts > bucket_cap).any()
+    # torch has no dropping scatter: rows out of bucket go to a dump row
+    fits = (rank < bucket_cap) & (sdest < n_shards)
+    slot = torch.where(fits, sdest * bucket_cap + rank, n_shards * bucket_cap)
+    send = torch.full((n_shards * bucket_cap + 1, k), PAD, dtype=data.dtype,
+                      device=dev)
+    send[slot] = data[order]
+    send = send[:-1]
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    exchanges["all_to_all"] += 1
+    exchanges["buffer_bytes"] += send.numel() * send.element_size()
+    del send
+    me = dist.get_rank(group)
+    placed = torch.clamp(counts, max=bucket_cap)
+    sent = placed.sum() - placed[me]
+    out, n_out, ovf = _compact(recv, recv[:, 0] != PAD, out_cap)
+    return out, n_out, overflow | ovf, sent
+
+
+# ---------------------------------------------------------------------------
+# Distributed plan executor
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DistBindings:
+    cols: Tuple[str, ...]
+    data: torch.Tensor       # (cap, k) — this rank's shard
+    n: torch.Tensor
+    overflow: torch.Tensor
+    part_key: Optional[str]  # variable this relation is hash-partitioned by
+
+
+@dataclass
+class _DistInputs:
+    """This rank's device-resident inputs, uploaded once."""
+
+    rows: List[torch.Tensor]         # per step: (cap, k) int32, PAD tail
+    ns: List[torch.Tensor]           # per step: () int32 valid count
+    values: torch.Tensor             # (nv, 4) float32 numeric keys
+
+
+#: per flat step index: the hoisted (bounds-independent) scan of a batch
+_Shared = Dict[int, DistBindings]
+
+
+class DistributedExecutor:
+    """Executes a compiled plan over the ranks of a process group.
+
+    ``group`` is a ``torch.distributed`` process group (``None``: the
+    default group), which must be initialized; every rank of it builds
+    the same executor and calls ``run`` / ``run_batch`` with the same
+    arguments, and every rank gets the same rows back.  ``device`` is
+    this rank's device (``None`` means ``"cuda"``).
+    """
+
+    bounds_from_plan = staticmethod(bounds_from_plan)
+
+    def __init__(self, plan, catalog: Catalog, group=None,
+                 slack: float = 2.0, dual_partition: bool = False,
+                 spine: Optional[ModifierSpine] = None, device=None):
+        if isinstance(plan, CorePlan):
+            core = plan
+        else:
+            core = CorePlan(root=BGPSeg(plan=plan, start=0), flat=plan,
+                            empty=plan.empty, vars=plan.vars)
+        if core.empty:
+            raise ValueError("statistics-empty plan")
+        _require_initialized()
+        self.core = core
+        self.plan = core.flat      # what template re-binding operates on
+        self.catalog = catalog
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.n_shards = dist.get_world_size(group)
+        self.device = resolve_device(device)
+        self.dual_partition = dual_partition
+        self.slack = slack
+        # Solution modifiers: FILTER + projection are row-local and run
+        # per shard; DISTINCT / ORDER BY / OFFSET / LIMIT need the whole
+        # relation, so the (small, capacity-bounded) per-shard results
+        # are all-gathered and the global modifiers run replicated.
+        self.spine = spine if spine is not None else ModifierSpine()
+        self._pipe_cols = _exec_cols(core.root)
+        self._out_vars = tuple(self.spine.project) \
+            if self.spine.project is not None else self._pipe_cols
+        # core filters (OPTIONAL conditions, FILTER segments) consume
+        # their fconsts slots first, then the spine's — one shared
+        # runtime vector, evaluation order (see PlanExecutor)
+        self._all_filters = tuple(core_filter_exprs(core.root)) + \
+            tuple(self.spine.filters)
+        self.filter_slots = filter_const_slots(self._all_filters)
+        # raises NotImplementedError only for dictionaries whose numeric
+        # keys defeat the double-single pairs
+        self._value_keys = prepare_value_keys(catalog, self.spine,
+                                              self._all_filters)
+        self.gathered = self.spine.needs_global
+
+        # storage: shard every referenced table by subject (and object);
+        # TT steps (unbound predicates) share one subject-sharded copy of
+        # the triples table
+        plan_f = self.plan
+        tt_sh: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.table_shards: List[Dict[str, Tuple[np.ndarray, np.ndarray]]] = []
+        sizes: List[float] = []
+        for step in plan_f.steps:
+            if step.uses_tt:
+                if tt_sh is None:
+                    tt_sh = shard_table(np.asarray(catalog.tt, np.int32),
+                                        self.n_shards, by=0)
+                self.table_shards.append({"s": tt_sh})
+                sizes.append(float(catalog.n_triples))
+                continue
+            t = catalog.table(step.kind, int(step.tp.p), step.p2)
+            shards = {"s": shard_table(t, self.n_shards, by=0)}
+            if dual_partition:
+                shards["o"] = shard_table(t, self.n_shards, by=1)
+            self.table_shards.append(shards)
+            sizes.append(float(len(t)))
+
+        # per-shard capacity seeds: the PlanExecutor estimate chain
+        # divided by the shard count (each shard holds ~1/S of every
+        # relation); combine segments (join/left/union) get their own
+        # slots behind the flat steps, in evaluation (post-) order
+        n_flat = len(plan_f.steps)
+        flat_caps = [16] * n_flat
+        comb_caps: List[int] = []
+        self._comb_index: Dict[int, int] = {}
+
+        def seed(seg: CoreSeg) -> float:
+            if isinstance(seg, EmptySeg):
+                return 1.0
+            if isinstance(seg, FilterSeg):
+                return seed(seg.child)
+            if isinstance(seg, BGPSeg):
+                est = 1.0
+                for k, step in enumerate(seg.plan.steps):
+                    i = seg.start + k
+                    scan_est = max(1.0, sizes[i] / self.n_shards)
+                    if step.tp.n_bound() > 1:
+                        scan_est = max(1.0, scan_est * 0.01)
+                    est = scan_est if k == 0 else \
+                        max(est, scan_est, est * 1.25)
+                    flat_caps[i] = round_up_pow2(int(est * slack) + 16, 16)
+                return est
+            le, re_ = seed(seg.left), seed(seg.right)
+            if seg.kind == "join":
+                est = 1.25 * max(le, re_)
+            elif seg.kind == "left":
+                # inner rows plus (worst case) every left row unmatched
+                est = 1.25 * max(le, re_) + le
+            else:
+                est = le + re_
+            self._comb_index[id(seg)] = n_flat + len(comb_caps)
+            comb_caps.append(round_up_pow2(int(est * slack) + 16, 16))
+            return est
+
+        seed(core.root)
+        self.caps = flat_caps + comb_caps
+        self._n_pipeline = len(self.caps)
+        # per-shard resize slot ahead of the gather: the global modifiers
+        # then sort/compact S·mod_cap rows instead of S·join_cap (see
+        # PlanExecutor; the slot rides the same overflow-retry protocol)
+        self._mod_resize = self.gathered
+        if self._mod_resize:
+            pipe_cap = max(self.caps) if self.caps else 64
+            self.caps.append(_mod_cap_seed(self.spine, pipe_cap))
+        self._default_bounds = bounds_from_plan(plan_f)
+
+        # Which storage copy each scan uses: simulate the plan's join-key
+        # sequence and pick the copy whose partition variable IS the
+        # upcoming join key — an object-keyed probe then reads the
+        # o-partitioned copy and skips the exchange.  The simulation only
+        # makes sense within one scan/join pipeline, so it applies when
+        # the whole core is a single BGP (FILTER wrappers are
+        # transparent); tree cores read the s-copy everywhere.
+        self.scan_copy: List[str] = ["s"] * n_flat
+        root_bgp: CoreSeg = core.root
+        while isinstance(root_bgp, FilterSeg):
+            root_bgp = root_bgp.child
+        if dual_partition and isinstance(root_bgp, BGPSeg):
+            steps = root_bgp.plan.steps
+            acc_cols: List[str] = []
+            for i, step in enumerate(steps):
+                tp = step.tp
+                if not step.uses_tt:   # the TT copy is subject-sharded only
+                    join_key = None
+                    if i > 0:
+                        scan_vars = [v for v in (tp.s, tp.o) if is_var(v)]
+                        shared = [c for c in acc_cols if c in scan_vars]
+                        join_key = shared[0] if shared else None
+                    elif len(steps) > 1:
+                        # first scan: partition by the 2nd step's join var
+                        nxt = steps[1].tp
+                        nxt_vars = {v for v in (nxt.s, nxt.o) if is_var(v)}
+                        for v in (tp.s, tp.o):
+                            if is_var(v) and v in nxt_vars:
+                                join_key = v
+                                break
+                    if join_key is not None and is_var(tp.o) \
+                            and join_key == tp.o:
+                        self.scan_copy[i] = "o"
+                for v in (tp.s, tp.p, tp.o):
+                    if is_var(v) and v not in acc_cols:
+                        acc_cols.append(v)
+
+    # -- this rank's program ----------------------------------------------------
+    @functools.cached_property
+    def _device_inputs(self) -> _DistInputs:
+        """This rank's shard of every scanned table (the copy
+        :attr:`scan_copy` picked) and the numeric key table, uploaded
+        once per executor."""
+        dev = self.device
+        rows, ns = [], []
+        for shards, copy in zip(self.table_shards, self.scan_copy):
+            r, n = shards[copy]
+            rows.append(torch.from_numpy(
+                np.ascontiguousarray(r[self.rank])).to(dev))
+            ns.append(_scalar(int(n[self.rank]), dev))
+        values = torch.from_numpy(self._value_keys).to(dev)
+        return _DistInputs(rows, ns, values)
+
+    def _scan_step(self, i: int, step: ScanStep, inp: _DistInputs,
+                   bounds: torch.Tensor) -> DistBindings:
+        """One shard-local scan.  TT steps (unbound predicates) read this
+        rank's slice of the subject-sharded triples table; VP/ExtVP
+        steps read the copy :attr:`scan_copy` picked."""
+        tp = step.tp
+        rows, nrows = inp.rows[i], inp.ns[i]
+        if step.uses_tt:
+            s_b, p_b, o_b, eqs, take, cols = _tt_meta(tp)
+            sb = bounds[i, 0] if s_b is not None else None
+            ob = bounds[i, 1] if o_b is not None else None
+            data, n, ovf = device_scan_tt(rows, nrows, sb, p_b, ob,
+                                          eqs, take, rows.shape[0])
+            part_var = tp.s if is_var(tp.s) else None
+            return DistBindings(cols, data, n, ovf, part_var)
+        s_bound, o_bound, same, take, cols = _step_meta(step)
+        data, n, ovf = device_scan(rows, nrows,
+                                   bounds[i, 0] if s_bound is not None else None,
+                                   bounds[i, 1] if o_bound is not None else None,
+                                   same, take, rows.shape[0])
+        copy = self.scan_copy[i]
+        part_var = None
+        if copy == "s" and is_var(tp.s):
+            part_var = tp.s
+        elif copy == "o" and is_var(tp.o):
+            part_var = tp.o
+        return DistBindings(cols, data, n, ovf, part_var)
+
+    def _compose_bgp(self, seg: BGPSeg, caps, inp: _DistInputs, bounds,
+                     ovfs: List[torch.Tensor], sent: List[torch.Tensor],
+                     shared: _Shared) -> DistBindings:
+        """The shard-local scan/join pipeline of one BGP segment; records
+        each step's overflow at its flat index (see PlanExecutor)."""
+        no = _false(self.device)
+        if not seg.plan.steps:
+            # empty BGP: the unit relation (one empty solution mapping)
+            # lives on rank 0 — anywhere else it would be counted S times
+            n = _scalar(1 if self.rank == 0 else 0, self.device)
+            return DistBindings((), torch.zeros((8, 0), dtype=_I32,
+                                                device=self.device),
+                                n, no, None)
+        acc: Optional[DistBindings] = None
+        for k, step in enumerate(seg.plan.steps):
+            i = seg.start + k
+            cur = shared[i] if i in shared else \
+                self._scan_step(i, step, inp, bounds)
+            if acc is None:
+                acc = cur
+                ovfs[i] = cur.overflow
+                continue
+            joined = self._dist_join(acc, cur, caps[i], sent)
+            ovfs[i] = joined.overflow | cur.overflow
+            acc = joined
+        return DistBindings(acc.cols, acc.data, acc.n, no, acc.part_key)
+
+    def _eval_seg(self, seg: CoreSeg, caps, inp: _DistInputs, bounds,
+                  fconsts, ctr: List[int], ovfs: List[torch.Tensor],
+                  sent: List[torch.Tensor], shared: _Shared) -> DistBindings:
+        """Evaluate the core segment tree to one shard-local relation;
+        mirrors :meth:`repro_torch.core.jexec.PlanExecutor._eval_seg`
+        with the combines going through the distributed (co-partition /
+        gather) join family.  Each combine writes its own overflow flag
+        at its capacity index, so returned relations carry clean flags."""
+        no = _false(self.device)
+        values = inp.values
+        if isinstance(seg, EmptySeg):
+            k = len(seg.vars)
+            return DistBindings(tuple(seg.vars),
+                                torch.full((8, k), PAD, dtype=_I32,
+                                           device=self.device),
+                                _scalar(0, self.device), no, None)
+        if isinstance(seg, BGPSeg):
+            return self._compose_bgp(seg, caps, inp, bounds, ovfs, sent,
+                                     shared)
+        if isinstance(seg, FilterSeg):
+            d = self._eval_seg(seg.child, caps, inp, bounds, fconsts, ctr,
+                               ovfs, sent, shared)
+            jb = device_filter(JBindings(d.cols, d.data, d.n, no),
+                               seg.expr, values, fconsts, ctr)
+            return DistBindings(jb.cols, jb.data, jb.n, no, d.part_key)
+        left = self._eval_seg(seg.left, caps, inp, bounds, fconsts, ctr,
+                              ovfs, sent, shared)
+        right = self._eval_seg(seg.right, caps, inp, bounds, fconsts, ctr,
+                               ovfs, sent, shared)
+        ci = self._comb_index[id(seg)]
+        if seg.kind == "join":
+            out = self._dist_join(left, right, caps[ci], sent)
+        elif seg.kind == "left":
+            out = self._dist_left_join(left, right, caps[ci], seg.expr,
+                                       values, fconsts, ctr, sent)
+        else:
+            out = self._dist_union(left, right, caps[ci])
+        ovfs[ci] = out.overflow
+        return DistBindings(out.cols, out.data, out.n, no, out.part_key)
+
+    def _shard_program(self, caps, inp: _DistInputs, bounds, fconsts,
+                       shared: _Shared):
+        """One binding on this rank: ``(data, n, overflow flags per
+        capacity slot (this rank's), rows sent)``.  Like
+        :meth:`repro_torch.core.jexec.PlanExecutor._program`, overflow is
+        reported per capacity slot so the host retry doubles only the
+        overflowing capacities."""
+        no = _false(self.device)
+        ctr = [0]
+        ovfs: List[torch.Tensor] = [no] * self._n_pipeline
+        sent: List[torch.Tensor] = []
+        acc = self._eval_seg(self.core.root, caps, inp, bounds, fconsts, ctr,
+                             ovfs, sent, shared)
+        total_sent = torch.stack(sent).sum() if sent else \
+            torch.zeros((), dtype=_I64, device=self.device)
+
+        # shard-local modifiers: FILTER masks (+ projection when no
+        # global modifier needs the un-projected sort keys)
+        jb = JBindings(acc.cols, acc.data, acc.n, no)
+        for expr in self.spine.filters:
+            jb = device_filter(jb, expr, inp.values, fconsts, ctr)
+        if not self.gathered:
+            jb = device_project(jb, self._out_vars)
+            return jb.data, jb.n, self._flags(ovfs), total_sent
+        if self._mod_resize:
+            jb, mod_ovf = device_resize(jb, caps[self._n_pipeline])
+            ovfs = ovfs + [mod_ovf]
+
+        # global modifiers: gather the (capacity-bounded) shard results,
+        # compact, then ORDER BY → project → DISTINCT → OFFSET/LIMIT
+        # replicated (ordering before projection, as on the host paths) —
+        # only the final n ≤ limit rows ever reach the host
+        gdata, keep, _ = self._gather_relation(jb.data, jb.n)
+        cdata, cn, _ = _compact(gdata, keep, gdata.shape[0])
+        gb = JBindings(jb.cols, cdata, cn, no)
+        if self.spine.order:
+            gb = device_order(gb, self.spine.order, inp.values)
+        gb = device_project(gb, self._out_vars)
+        if self.spine.distinct:
+            gb = device_distinct(gb)
+        if self.spine.has_slice:
+            gb = device_slice(gb, self.spine.offset, self.spine.limit)
+        return gb.data, gb.n, self._flags(ovfs), total_sent
+
+    def _flags(self, ovfs: List[torch.Tensor]) -> torch.Tensor:
+        return torch.stack(ovfs) if ovfs else \
+            torch.zeros((0,), dtype=torch.bool, device=self.device)
+
+    def _gather_relation(self, data: torch.Tensor, n: torch.Tensor):
+        """Every rank's (front-compacted) relation block in rank order:
+        ``(data[S·cap, k], keep[S·cap], n_total)``.  Validity is
+        positional — row i of a block is live iff ``i < n`` of its rank —
+        which also covers 0-column relations (fully-constant patterns)
+        that have no PAD slot to test."""
+        gdata = _all_gather_cat(data, self.group)
+        ns = _all_gather_cat(n.reshape(1), self.group)
+        cap = data.shape[0]
+        keep = (torch.arange(cap, dtype=_I32, device=data.device)[None, :]
+                < ns[:, None]).reshape(-1)
+        return gdata, keep, ns.sum(dtype=_I32)
+
+    def _allgather_relation(self, b: DistBindings
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather a shard-local relation to every rank, valid rows first
+        (the reference's ``_allgather_relation``)."""
+        gdata, keep, n_tot = self._gather_relation(b.data, b.n)
+        data, _, _ = _compact(gdata, keep, gdata.shape[0])
+        return data, n_tot
+
+    def _dist_join(self, a: DistBindings, b: DistBindings, out_cap: int,
+                   sent: List[torch.Tensor]) -> DistBindings:
+        """Join two shard-local relations; the returned ``overflow`` is
+        this step's OWN flag (repartition bucket/compact + join output) —
+        input flags are not propagated, the caller tracks them per step."""
+        no = _false(self.device)
+        shared = [c for c in a.cols if c in b.cols]
+        if not shared:
+            # cross join: gather the (small) b side everywhere, then local
+            b_all, bn_all = self._allgather_relation(b)
+            jb = device_join(JBindings(a.cols, a.data, a.n, no),
+                             JBindings(b.cols, b_all, bn_all, no), out_cap)
+            return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
+                                a.part_key)
+        key = shared[0]
+        da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
+        jb = device_join(JBindings(a.cols, da, na, no),
+                         JBindings(b.cols, db, nb, no), out_cap)
+        return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
+
+    def _co_partition(self, a: DistBindings, b: DistBindings, key: str,
+                      out_cap: int, sent: List[torch.Tensor]):
+        """Repartition each side not already partitioned by ``key``."""
+        ovf = _false(self.device)
+        da, na = a.data, a.n
+        db, nb = b.data, b.n
+        if a.part_key != key:
+            da, na, o1, s1 = repartition(da, na, a.cols.index(key),
+                                         self.group,
+                                         max(da.shape[0], out_cap))
+            ovf = ovf | o1
+            sent.append(s1)
+        if b.part_key != key:
+            db, nb, o2, s2 = repartition(db, nb, b.cols.index(key),
+                                         self.group,
+                                         max(db.shape[0], out_cap))
+            ovf = ovf | o2
+            sent.append(s2)
+        return da, na, db, nb, ovf
+
+    def _dist_left_join(self, a: DistBindings, b: DistBindings,
+                        out_cap: int, expr, values, fconsts, ctr,
+                        sent: List[torch.Tensor]) -> DistBindings:
+        """OPTIONAL over shard-local relations.  With a shared variable
+        both sides are co-partitioned on it first, so each probe row
+        meets ALL its matches locally and the unmatched (UNBOUND-padded)
+        tail is computed shard-locally too; without one the (small) b
+        side is gathered everywhere — either way the per-shard row sets
+        partition the global left-outer-join result exactly."""
+        no = _false(self.device)
+        shared = [c for c in a.cols if c in b.cols]
+        if not shared:
+            b_all, bn_all = self._allgather_relation(b)
+            jb = device_left_join(JBindings(a.cols, a.data, a.n, no),
+                                  JBindings(b.cols, b_all, bn_all, no),
+                                  out_cap, expr, values, fconsts, ctr)
+            return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
+                                a.part_key)
+        key = shared[0]
+        da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
+        jb = device_left_join(JBindings(a.cols, da, na, no),
+                              JBindings(b.cols, db, nb, no),
+                              out_cap, expr, values, fconsts, ctr)
+        return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
+
+    def _dist_union(self, a: DistBindings, b: DistBindings,
+                    out_cap: int) -> DistBindings:
+        """UNION is shard-local (no collective): each rank concatenates
+        its slices of both operands.  The partition key survives only
+        when both sides are partitioned by the SAME variable (rows keep
+        satisfying key % S == rank)."""
+        no = _false(self.device)
+        jb = device_union(JBindings(a.cols, a.data, a.n, no),
+                          JBindings(b.cols, b.data, b.n, no), out_cap)
+        pk = a.part_key if (a.part_key is not None
+                            and a.part_key == b.part_key) else None
+        return DistBindings(jb.cols, jb.data, jb.n, jb.overflow, pk)
+
+    def _hoist(self, inp: _DistInputs) -> _Shared:
+        """The shared phase of a batched launch: every scan whose pattern
+        binds no constant gives each binding the same relation, so it
+        runs once per launch (constants only enter scan selections)."""
+        unused = self._to_device(self._default_bounds)
+        shared: _Shared = {}
+        for i, step in enumerate(self.plan.steps):
+            if step.uses_tt:
+                s_b, _, o_b, _, _, _ = _tt_meta(step.tp)
+            else:
+                s_b, o_b = _step_meta(step)[:2]
+            if s_b is None and o_b is None:
+                shared[i] = self._scan_step(i, step, inp, unused)
+        return shared
+
+    # -- public API --------------------------------------------------------------
+    def fconsts_from_mapping(self, mapping=None) -> np.ndarray:
+        """Runtime filter-constant vector (see
+        :meth:`repro_torch.core.jexec.PlanExecutor.fconsts_from_mapping`)."""
+        m = mapping or {}
+        return np.asarray([m.get(c, c) for c in self.filter_slots],
+                          dtype=np.int32)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sync(self, outs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The one host sync of a launch: every binding's overflow flags,
+        and every rank's row count and rows sent, in one
+        ``all_reduce(MAX)`` (a rank writes its own counts into its own
+        column, zeros elsewhere) and one copy to the host.  Returns
+        ``(flags (B, slots), n (B, S), sent (B, S))``, equal on every
+        rank."""
+        size = self.n_shards
+        mine = torch.arange(size, device=self.device) == self.rank
+        head = torch.stack([
+            torch.cat([ovf.to(_I64), torch.where(mine, n.to(_I64), 0),
+                       torch.where(mine, s, 0)])
+            for _, n, ovf, s in outs])
+        dist.all_reduce(head, op=dist.ReduceOp.MAX, group=self.group)
+        head = head.cpu().numpy()
+        slots = head.shape[1] - 2 * size
+        exchanges["rows_sent"] += int(head[:, slots + size + self.rank].sum())
+        return head[:, :slots], head[:, slots:slots + size], \
+            head[:, slots + size:]
+
+    def _collect(self, data: torch.Tensor, ns: np.ndarray) -> np.ndarray:
+        """The result rows on every rank: a gathered (replicated) result
+        as it is; otherwise every rank's rows concatenated in rank order,
+        each rank's block padded to the largest count for the gather and
+        cut back to its own count."""
+        if self.gathered:
+            return data[:int(ns[0])].cpu().numpy()
+        k = data.shape[1]
+        top = int(ns.max())
+        if k == 0 or top == 0:
+            return np.zeros((int(ns.sum()), k), dtype=np.int32)
+        parts = [torch.empty((top, k), dtype=data.dtype, device=data.device)
+                 for _ in range(self.n_shards)]
+        dist.all_gather(parts, data[:top].contiguous(), group=self.group)
+        return torch.cat([p[:int(c)] for p, c in zip(parts, ns)]) \
+            .cpu().numpy()
+
+    def run(self, max_retries: int = 16,
+            bounds: Optional[np.ndarray] = None,
+            fconsts: Optional[np.ndarray] = None
+            ) -> Tuple[np.ndarray, Tuple[str, ...]]:
+        """Execute one binding on every rank; returns the result rows
+        (host numpy, the same on every rank) and their columns."""
+        inp = self._device_inputs
+        b = self._default_bounds if bounds is None else \
+            np.asarray(bounds, dtype=np.int32).reshape(self._default_bounds.shape)
+        fc = self.fconsts_from_mapping(None) if fconsts is None else \
+            np.asarray(fconsts, dtype=np.int32).reshape(len(self.filter_slots))
+        bj, fj = self._to_device(b), self._to_device(fc)
+        caps = tuple(self.caps)
+        for _ in range(max_retries):
+            out = self._shard_program(caps, inp, bj, fj, {})
+            ovf, ns, _ = self._sync([out])
+            if not ovf.any():
+                self.caps = list(caps)   # keep grown caps across requests
+                return self._collect(out[0], ns[0]), self._final_cols()
+            del out
+            caps = double_caps(caps, ovf[0].astype(bool), self._n_pipeline)
+        raise RuntimeError("distributed join capacity overflow after retries")
+
+    def run_batch(self, bounds_batch: Sequence[np.ndarray],
+                  fconsts_batch: Optional[Sequence[np.ndarray]] = None,
+                  max_retries: int = 16
+                  ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
+        """Execute B constant-bindings of the plan in one launch: the
+        bounds-independent scans run once (:meth:`_hoist`), then every
+        rank runs the bindings in one order, and one sync reads all
+        their flags; see :meth:`repro_torch.core.jexec.PlanExecutor
+        .run_batch` for the retry contract (any element overflowing
+        retries the whole batch)."""
+        if not bounds_batch:
+            return []
+        inp = self._device_inputs
+        shape = self._default_bounds.shape
+        bb = np.stack([np.asarray(b, dtype=np.int32).reshape(shape)
+                       for b in bounds_batch])
+        n_fc = len(self.filter_slots)
+        if fconsts_batch is None:
+            fb = np.tile(self.fconsts_from_mapping(None), (len(bb), 1))
+        else:
+            fb = np.stack([np.asarray(f, dtype=np.int32).reshape(n_fc)
+                           for f in fconsts_batch])
+        bj, fj = self._to_device(bb), self._to_device(fb)
+        caps = tuple(self.caps)
+        for _ in range(max_retries):
+            shared = self._hoist(inp)
+            outs = [self._shard_program(caps, inp, bj[i], fj[i], shared)
+                    for i in range(len(bb))]
+            ovf, ns, _ = self._sync(outs)
+            ovf_any = ovf.any(axis=0)
+            if not ovf_any.any():
+                self.caps = list(caps)
+                cols = self._final_cols()
+                return [(self._collect(o[0], ns[i]), cols)
+                        for i, o in enumerate(outs)]
+            del outs, shared
+            caps = double_caps(caps, ovf_any.astype(bool), self._n_pipeline)
+        raise RuntimeError(
+            "distributed join capacity overflow after retries (batched)")
+
+    def _final_cols(self) -> Tuple[str, ...]:
+        return self._out_vars
+
+
+# ---------------------------------------------------------------------------
+# Distributed ExtVP construction (the load-job analogue of the query engine)
+# ---------------------------------------------------------------------------
+
+def _shares(n_keys: np.ndarray, n_shards: int) -> np.ndarray:
+    """Cut points of ``n_shards`` contiguous shares of the pairs, each of
+    about the same number of probe keys (the semi-join's work)."""
+    cum = np.cumsum(n_keys)
+    total = int(cum[-1]) if len(cum) else 0
+    cuts = [int(np.searchsorted(cum, total * r // n_shards, side="right"))
+            for r in range(1, n_shards)]
+    return np.array([0, *cuts, len(n_keys)], dtype=np.int64)
+
+
+def extvp_pair_masks_sharded(vp: Dict[int, Table], evals: Sequence,
+                             threshold: float, group=None, device=None,
+                             pair_batch: int = 512):
+    """Semi-join every pair of ``evals`` with the (kind, p1, p2) pair grid
+    split across the ranks of ``group``; returns ``(sf, sizes, tables)``
+    as :func:`repro_torch.core.extvp_build.evaluate_pairs` does.
+
+    S2RDF runs the §5 semi-join reductions as a distributed Spark job;
+    here each rank takes a contiguous share of the pairs (about equal in
+    probe keys) and runs ``evaluate_pairs``' device build over it — the
+    semi-join kernel on the card.  The shares' match counts and
+    materialized rows are then all-gathered in the pairs' order, and
+    every rank computes SF and the τ test from the counts with the
+    expression the single-device build uses, so every rank ends with the
+    same catalog, byte-identical to the numpy build.  (The reference's
+    function of this name returns the masks of one padded pair batch; no
+    mask leaves a device here.)  Every rank must call it with the same
+    arguments; ``device`` is this rank's device (``None``: ``"cuda"``).
+    """
+    from repro_torch.core.extvp_build import evaluate_pairs
+
+    _require_initialized()
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    dev = resolve_device(device)
+    evals = list(evals)
+    n1s = np.array([len(vp[k[1]]) for k in evals], dtype=np.int64)
+    cuts = _shares(n1s, size)
+    share = evals[cuts[me]:cuts[me + 1]]
+    _, sizes, tables = evaluate_pairs(vp, share, threshold, backend="torch",
+                                      device=dev, pair_batch=pair_batch)
+    # match counts of every pair, in pair order (shares padded to the
+    # longest for the gather)
+    longest = int(np.diff(cuts).max())
+    local = np.zeros(longest, dtype=np.int64)
+    local[:len(share)] = [sizes[k] for k in share]
+    gathered = _all_gather_cat(torch.from_numpy(local).to(dev), group) \
+        .cpu().numpy().reshape(size, longest)
+    counts = np.concatenate([gathered[r, :cuts[r + 1] - cuts[r]]
+                             for r in range(size)])
+    sfv = np.where(n1s > 0, counts / np.maximum(n1s, 1), 0.0)
+    which = np.nonzero((sfv > 0) & (sfv < 1.0) & (sfv <= threshold))[0]
+    # the materialized rows of each share, in pair order, end to end
+    per_rank = [int(counts[which[(which >= cuts[r]) & (which < cuts[r + 1])]]
+                    .sum()) for r in range(size)]
+    top = max(per_rank)
+    tables_out: Dict = {}
+    if top:
+        mine = [tables[evals[j]].rows for j in which
+                if cuts[me] <= j < cuts[me + 1]]
+        block = np.zeros((top, 2), dtype=np.int32)
+        if mine:
+            block[:per_rank[me]] = np.concatenate(mine)
+        allrows = _all_gather_cat(torch.from_numpy(block).to(dev), group) \
+            .cpu().numpy().reshape(size, top, 2)
+        rows = np.concatenate([allrows[r, :per_rank[r]]
+                               for r in range(size)])
+        bounds = np.cumsum(counts[which])[:-1]
+        tables_out = {evals[j]: Table(r)
+                      for j, r in zip(which, np.split(rows, bounds))}
+    sf = dict(zip(evals, sfv.tolist()))
+    sizes_out = dict(zip(evals, counts.tolist()))
+    return sf, sizes_out, tables_out

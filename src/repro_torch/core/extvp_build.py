@@ -15,7 +15,11 @@ they are byte-identical by construction:
   Only the counts come back to the host for the SF test; the rows of
   each pair that materializes are compacted on the device (a stable
   ``torch.nonzero`` keeps the s-order) and copied back in one piece.
-  No mask is copied to the host.
+  No mask is copied to the host;
+* ``"distributed"`` — the device build with the pair grid split across
+  the ranks of a ``torch.distributed`` process group
+  (:func:`repro_torch.core.distributed.extvp_pair_masks_sharded`), each
+  rank semi-joining its share on its own device.
 
 Host-side work that remains mirrors the coordinating process of
 S2RDF's Spark job: pair planning (the disjoint-entity-range
@@ -190,14 +194,17 @@ def _materialize(packed: PackedVP, chunk: Sequence[Key], desc: np.ndarray,
 
 def evaluate_pairs(vp: Dict[int, Table], evals: Sequence[Key],
                    threshold: float, backend: str = "numpy",
-                   device=None, pair_batch: int = 512,
+                   device=None, pair_batch: int = 512, group=None,
                    ) -> Tuple[Dict[Key, float], Dict[Key, int],
                               Dict[Key, Table]]:
     """Semi-join every pair in ``evals``; returns (sf, sizes, tables).
 
     ``backend="numpy"`` is the host loop; ``"torch"`` batches the pair
     grid on ``device`` (a CUDA device launches the semi-join kernel, the
-    CPU runs its plain version), at most ``pair_batch`` pairs a launch.
+    CPU runs its plain version), at most ``pair_batch`` pairs a launch;
+    ``"distributed"`` splits the pairs across the ranks of the process
+    group ``group`` (``None``: the default group), each rank running the
+    ``"torch"`` build over its share on ``device``.
     """
     if backend not in BUILD_BACKENDS:
         raise ValueError(f"unknown ExtVP build backend {backend!r}; "
@@ -223,6 +230,11 @@ def evaluate_pairs(vp: Dict[int, Table], evals: Sequence[Key],
             if 0 < sfv < 1.0 and sfv <= threshold:
                 tables[key] = Table(t1.rows[mask])   # mask keeps s-order
         return sf, sizes, tables
+
+    if backend == "distributed":
+        from repro_torch.core.distributed import extvp_pair_masks_sharded
+        return extvp_pair_masks_sharded(vp, evals, threshold, group=group,
+                                        device=device, pair_batch=pair_batch)
 
     # Pack only the predicates this eval set references, so an
     # incremental rebuild of a few pairs is not charged for the whole
@@ -256,7 +268,7 @@ def evaluate_pairs(vp: Dict[int, Table], evals: Sequence[Key],
 def build_extvp_planned(vp: Dict[int, Table], threshold: float = 1.0,
                         kinds: Tuple[str, ...] = KINDS,
                         backend: str = "numpy", device=None,
-                        pair_batch: int = 512) -> ExtVPBuild:
+                        pair_batch: int = 512, group=None) -> ExtVPBuild:
     """Full ExtVP schema via the planned pipeline (prune -> evaluate ->
     materialize).  Both builds share the pruning, SF arithmetic and the
     τ test of :func:`evaluate_pairs`, so they are byte-identical."""
@@ -267,7 +279,8 @@ def build_extvp_planned(vp: Dict[int, Table], threshold: float = 1.0,
         out.sf[key] = 0.0
         out.sizes[key] = 0
     sf, sizes, tables = evaluate_pairs(vp, evals, threshold, backend=backend,
-                                       device=device, pair_batch=pair_batch)
+                                       device=device, pair_batch=pair_batch,
+                                       group=group)
     out.sf.update(sf)
     out.sizes.update(sizes)
     out.tables.update(tables)
@@ -282,7 +295,7 @@ def build_extvp_planned(vp: Dict[int, Table], threshold: float = 1.0,
 def incremental_pairs(old: ExtVPBuild, old_vp: Dict[int, Table],
                       new_vp: Dict[int, Table], touched: Set[int],
                       threshold: float, kinds: Tuple[str, ...] = KINDS,
-                      backend: str = "numpy", device=None,
+                      backend: str = "numpy", device=None, group=None,
                       ) -> Tuple[ExtVPBuild, Dict[str, int]]:
     """Rebuild only the pairs an append actually touched.
 
@@ -338,7 +351,8 @@ def incremental_pairs(old: ExtVPBuild, old_vp: Dict[int, Table],
         out.sf[key] = 0.0
         out.sizes[key] = 0
     sf, sizes, tables = evaluate_pairs(new_vp, evals, threshold,
-                                       backend=backend, device=device)
+                                       backend=backend, device=device,
+                                       group=group)
     out.sf.update(sf)
     out.sizes.update(sizes)
     # Carried-over tables must not be forced out of a lazy provider

@@ -43,6 +43,7 @@ from repro_torch.core.compiler import (
 from repro_torch.core.modifiers import ModifierSpine, filter_const_slots
 from repro_torch.core.stats import Catalog
 from repro_torch.core.table import pad_rows, round_up_pow2
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.rdf.dictionary import PAD, UNBOUND
 
@@ -843,13 +844,13 @@ class PlanExecutor:
     Bound s/o constants enter as a device ``bounds`` array and filter
     constants as a device ``fconsts`` vector, so every instantiation of a
     query template runs through one executor — ``run(bounds=...)``
-    re-binds by changing inputs only.
+    re-binds by changing inputs only.  ``device=None`` means ``"cuda"``.
     """
 
     bounds_from_plan = staticmethod(bounds_from_plan)
 
     def __init__(self, plan, catalog: Catalog, slack: float = 1.5,
-                 spine: Optional[ModifierSpine] = None, device="cpu"):
+                 spine: Optional[ModifierSpine] = None, device=None):
         if isinstance(plan, CorePlan):
             core = plan
         else:
@@ -857,7 +858,7 @@ class PlanExecutor:
                             empty=plan.empty, vars=plan.vars)
         if core.empty:
             raise ValueError("cannot build executor for statistics-empty plan")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.core = core
         self.plan = core.flat      # what template re-binding operates on
         self.catalog = catalog

@@ -171,12 +171,15 @@ def build_catalog(
     with_extvp: bool = True,
     build_backend: str = "numpy",
     device=None,
+    group=None,
 ) -> Catalog:
     """End-to-end load: TT -> VP -> ExtVP(τ) + stats.
 
-    ``build_backend`` selects the ExtVP build: the ``"numpy"`` host loop
-    or the ``"torch"`` pair-batched build on ``device`` (None means
-    ``"cuda"``); both give byte-identical catalogs.
+    ``build_backend`` selects the ExtVP build: the ``"numpy"`` host loop,
+    the ``"torch"`` pair-batched build on ``device`` (None means
+    ``"cuda"``), or the ``"distributed"`` build over the ranks of the
+    process group ``group`` (None: the default group); all give
+    byte-identical catalogs.
     """
     t0 = time.perf_counter()
     vp = build_vp(tt)
@@ -185,7 +188,7 @@ def build_catalog(
     vp_secs = time.perf_counter() - t0
     if with_extvp:
         ext = build_extvp(vp, threshold=threshold, kinds=kinds,
-                          backend=build_backend, device=device)
+                          backend=build_backend, device=device, group=group)
     else:
         ext = ExtVPBuild(threshold=threshold, kinds=tuple(kinds))
     return Catalog(tt=np.asarray(tt, dtype=np.int32), vp=vp, extvp=ext,

@@ -27,9 +27,11 @@ through :mod:`repro_torch.core.extvp_build`:
   ``np.searchsorted``), one semi-join per pair;
 * ``"torch"`` — the pair-batched device build: the catalog is packed
   once into ragged device columns and whole batches of (kind, p1, p2)
-  pairs are semi-joined in one launch of the semi-join kernel.
+  pairs are semi-joined in one launch of the semi-join kernel;
+* ``"distributed"`` — the ``"torch"`` build with the pair grid split
+  across the ranks of a ``torch.distributed`` process group.
 
-Both produce byte-identical tables and statistics.
+All produce byte-identical tables and statistics.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ __all__ = ["build_vp", "build_extvp", "ExtVPBuild", "SS", "OS", "SO", "KINDS",
 SS, OS, SO = "SS", "OS", "SO"
 KINDS = (SS, OS, SO)
 #: the ExtVP builds (module docstring)
-BUILD_BACKENDS = ("numpy", "torch")
+BUILD_BACKENDS = ("numpy", "torch", "distributed")
 
 Key = Tuple[str, int, int]  # (kind, p1, p2)
 
@@ -117,6 +119,7 @@ def build_extvp(
     backend: str = "numpy",
     device=None,
     pair_batch: int = 512,
+    group=None,
 ) -> ExtVPBuild:
     """Compute the ExtVP schema over a VP catalog.
 
@@ -126,8 +129,10 @@ def build_extvp(
     as in the paper — "red tables" of Fig. 10).
 
     ``backend`` selects the build (module docstring): the ``"numpy"``
-    host loop or the ``"torch"`` pair-batched build on ``device`` (None
-    means ``"cuda"``), at most ``pair_batch`` pairs a launch.
+    host loop, the ``"torch"`` pair-batched build on ``device`` (None
+    means ``"cuda"``), at most ``pair_batch`` pairs a launch, or the
+    ``"distributed"`` build over the ranks of the process group
+    ``group`` (None: the default group), ``device`` being this rank's.
     """
     if backend not in BUILD_BACKENDS:
         raise ValueError(f"unknown ExtVP build backend {backend!r}; "
@@ -136,6 +141,6 @@ def build_extvp(
     from repro_torch.core.extvp_build import build_extvp_planned
     out = build_extvp_planned(vp, threshold=threshold, kinds=kinds,
                               backend=backend, device=device,
-                              pair_batch=pair_batch)
+                              pair_batch=pair_batch, group=group)
     out.build_seconds = time.perf_counter() - t0
     return out

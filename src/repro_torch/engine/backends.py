@@ -7,9 +7,11 @@ prepared query runs any constant instantiation via a
 :class:`~repro_torch.engine.template.ConstantBinding` without
 re-parsing or re-compiling.
 
-This package has one backend, ``"torch"``: the static-capacity executor
-of :mod:`repro_torch.core.jexec` on the engine's device.  It has no
-host engine to fall back on, so a template it cannot serve (the
+This package has two backends: ``"torch"``, the static-capacity
+executor of :mod:`repro_torch.core.jexec` on the engine's device, and
+``"distributed"``, the executor of :mod:`repro_torch.core.distributed`
+over the ranks of a ``torch.distributed`` process group.  Neither has a
+host engine to fall back on, so a template they cannot serve (the
 ``estimate`` planner, a dictionary whose numeric keys defeat the
 double-single encoding) raises NotImplementedError at prepare time.
 """
@@ -23,27 +25,37 @@ import numpy as np
 import torch
 
 from repro_torch.core.compiler import Plan, compile_core
+from repro_torch.core.distributed import DistributedExecutor
 from repro_torch.core.jexec import PlanExecutor
 from repro_torch.core.modifiers import peel_spine
 from repro_torch.core.stats import Catalog
+from repro_torch.device import resolve_device
 from repro_torch.engine.result import Bindings, Result
 from repro_torch.engine.template import (
     ConstantBinding, QueryTemplate, node_vars, rebind_plan,
 )
 
-__all__ = ["ExecutionContext", "PreparedQuery", "TorchBackend"]
+__all__ = ["ExecutionContext", "PreparedQuery", "TorchBackend",
+           "DistributedBackend"]
 
 _NO_BINDING = ConstantBinding(mapping={}, missing=False)
 
 
 @dataclass
 class ExecutionContext:
-    """Everything a backend needs to prepare and run queries."""
+    """Everything a backend needs to prepare and run queries.  ``device``
+    ``None`` means ``"cuda"``; ``group`` is the ``torch.distributed``
+    process group of the distributed backend (``None``: the default
+    group)."""
 
     catalog: Catalog
     dictionary: object = None            # Optional[repro_torch.rdf.Dictionary]
     planner: str = "greedy"
-    device: torch.device = torch.device("cpu")
+    device: torch.device = None
+    group: object = None
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
 
 
 class PreparedQuery:
@@ -77,8 +89,9 @@ class PreparedQuery:
 class _EmptyPrepared(PreparedQuery):
     """Statistics-proven empty template: answered without touching data."""
 
-    def __init__(self, template, ctx):
+    def __init__(self, template, ctx, backend: str):
         super().__init__(template, ctx)
+        self.backend = backend
         self.plan = Plan(empty=True, vars=self.out_cols)
 
     def run(self, binding: Optional[ConstantBinding] = None) -> Result:
@@ -92,7 +105,7 @@ class _VectorizedPrepared(PreparedQuery):
     statistics-only empty answer) are answered on the host and never
     occupy a batch slot."""
 
-    def __init__(self, template, ctx, executor: PlanExecutor):
+    def __init__(self, template, ctx, executor):
         super().__init__(template, ctx)
         self.executor = executor
         self.plan: Plan = executor.plan
@@ -149,6 +162,37 @@ class TorchBackend:
         core, spine = peel_spine(template.query)
         cp = compile_core(core, ctx.catalog, planner=ctx.planner)
         if cp.empty:
-            return _EmptyPrepared(template, ctx)
+            return _EmptyPrepared(template, ctx, self.name)
+        return self._prepared(template, ctx, cp, spine)
+
+    def _prepared(self, template, ctx, cp, spine) -> PreparedQuery:
         ex = PlanExecutor(cp, ctx.catalog, spine=spine, device=ctx.device)
         return _VectorizedPrepared(template, ctx, ex)
+
+
+class _DistributedPrepared(_VectorizedPrepared):
+    """The distributed executor over a process group; table shards and
+    the per-rank program are template-level state, constants are runtime
+    inputs.  Every rank of the group must run the same bindings in the
+    same order."""
+
+    backend = "distributed"
+
+
+class DistributedBackend(TorchBackend):
+    """The fragment of :class:`TorchBackend`, compiled into one
+    :class:`~repro_torch.core.distributed.DistributedExecutor` per
+    template over ``ctx.group``.  ``dual_partition`` adds an
+    object-partitioned copy of every table, so object-keyed probes skip
+    the exchange."""
+
+    name = "distributed"
+
+    def __init__(self, dual_partition: bool = False):
+        self.dual_partition = dual_partition
+
+    def _prepared(self, template, ctx, cp, spine) -> PreparedQuery:
+        ex = DistributedExecutor(cp, ctx.catalog, group=ctx.group,
+                                 dual_partition=self.dual_partition,
+                                 spine=spine, device=ctx.device)
+        return _DistributedPrepared(template, ctx, ex)

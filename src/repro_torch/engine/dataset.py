@@ -21,6 +21,16 @@ A dataset's ``device`` is where its ExtVP is built (``build_backend=
 "torch"``, the default: the semi-join kernel on a CUDA device) and the
 default device of its engines; ``device=None`` means ``"cuda"`` and
 raises when no CUDA device is present.  Tests pass ``device="cpu"``.
+
+Across the ranks of a ``torch.distributed`` process group, every rank
+holds the same dataset; ``build_backend="distributed"`` splits the
+ExtVP build across the ranks of ``group`` (None: the default group),
+and ``ds.engine("distributed")`` serves over them:
+
+    dist.init_process_group("nccl", init_method=..., rank=r, world_size=w)
+    ds = Dataset.watdiv(scale=34, threshold=0.25,
+                        build_backend="distributed")
+    rows = ds.engine("distributed").query(q).to_terms()   # on every rank
 """
 
 from __future__ import annotations
@@ -47,9 +57,12 @@ class Dataset:
     and the device its engines (and its ``"torch"`` builds) run on.
 
     ``build_backend`` selects the ExtVP build — ``"torch"``, the
-    pair-batched build on ``device``, or ``"numpy"``, the host loop
-    (:mod:`repro_torch.core.extvp_build`); both build byte-identical
-    catalogs, and the choice also seeds :meth:`append_triples`.
+    pair-batched build on ``device``, ``"numpy"``, the host loop, or
+    ``"distributed"``, the ``"torch"`` build split across the ranks of
+    the process group ``group`` (:mod:`repro_torch.core.extvp_build`);
+    all build byte-identical catalogs, and the choice also seeds
+    :meth:`append_triples`.  ``group`` (None: the default group) is
+    also the default group of the dataset's distributed engines.
     """
 
     catalog: Catalog
@@ -57,6 +70,7 @@ class Dataset:
     schema: object = None              # Optional[WatDivSchema]
     device: torch.device = None
     build_backend: str = "torch"
+    group: object = None
     #: directory of the on-disk store this dataset is attached to (set by
     #: :meth:`load` / :meth:`save`); appends journal delta segments there
     store_path: Optional[str] = field(default=None, repr=False)
@@ -77,7 +91,7 @@ class Dataset:
                      kinds: Tuple[str, ...] = KINDS,
                      with_extvp: bool = True,
                      build_backend: str = "torch",
-                     device=None) -> "Dataset":
+                     device=None, group=None) -> "Dataset":
         """Build the full store from (s, p, o) string triples."""
         from repro_torch.rdf.dictionary import Dictionary
         device = resolve_device(device)
@@ -85,9 +99,10 @@ class Dataset:
         tt = d.encode_triples(list(triples))
         cat = build_catalog(tt, d, threshold=threshold, kinds=kinds,
                             with_extvp=with_extvp,
-                            build_backend=build_backend, device=device)
+                            build_backend=build_backend, device=device,
+                            group=group)
         return cls(catalog=cat, dictionary=d, device=device,
-                   build_backend=build_backend)
+                   build_backend=build_backend, group=group)
 
     @classmethod
     def watdiv(cls, scale: float = 1.0, seed: int = 0,
@@ -95,7 +110,7 @@ class Dataset:
                kinds: Tuple[str, ...] = KINDS,
                with_extvp: bool = True,
                build_backend: str = "torch",
-               device=None) -> "Dataset":
+               device=None, group=None) -> "Dataset":
         """Generate a WatDiv-like graph (paper §7) and build its store."""
         from repro_torch.rdf.generator import WatDivConfig, generate_watdiv
         device = resolve_device(device)
@@ -103,23 +118,25 @@ class Dataset:
                                                   seed=seed))
         cat = build_catalog(tt, d, threshold=threshold, kinds=kinds,
                             with_extvp=with_extvp,
-                            build_backend=build_backend, device=device)
+                            build_backend=build_backend, device=device,
+                            group=group)
         return cls(catalog=cat, dictionary=d, schema=sch, device=device,
-                   build_backend=build_backend)
+                   build_backend=build_backend, group=group)
 
     @classmethod
     def from_ntriples(cls, path: str, threshold: float = 1.0,
                       kinds: Tuple[str, ...] = KINDS,
                       with_extvp: bool = True,
                       build_backend: str = "torch",
-                      device=None) -> "Dataset":
+                      device=None, group=None) -> "Dataset":
         """Load an N-Triples file (the paper's input format)."""
         from repro_torch.rdf.ntriples import parse_ntriples
         with open(path) as f:
             triples = parse_ntriples(f.read())
         return cls.from_triples(triples, threshold=threshold, kinds=kinds,
                                 with_extvp=with_extvp,
-                                build_backend=build_backend, device=device)
+                                build_backend=build_backend, device=device,
+                                group=group)
 
     # -- incremental load -----------------------------------------------------
     def append_triples(self, triples: Iterable[Tuple[str, str, str]],
@@ -130,8 +147,10 @@ class Dataset:
         whose probe-side entity range the new build keys intersect — are
         re-semi-joined (:func:`repro_torch.core.extvp_build
         .incremental_pairs`) with the dataset's ``build_backend``, on its
-        device for the ``"torch"`` build.  The resulting catalog is equivalent to a from-scratch
-        build over the concatenated triples.
+        device for the ``"torch"`` build and across the ranks of its
+        ``group`` for the ``"distributed"`` one (every rank then appends
+        the same triples).  The resulting catalog is equivalent to a
+        from-scratch build over the concatenated triples.
 
         Cached engines are dropped, and with them the tables they hold
         on their device (their prepared plans scan the old tables);
@@ -188,7 +207,8 @@ class Dataset:
             ext, report = incremental_pairs(
                 cat.extvp, cat.vp, vp, touched,
                 threshold=cat.extvp.threshold, kinds=tuple(cat.extvp.kinds),
-                backend=self.build_backend, device=self.device)
+                backend=self.build_backend, device=self.device,
+                group=self.group)
         else:
             ext = ExtVPBuild(threshold=cat.extvp.threshold,
                              kinds=tuple(cat.extvp.kinds),
@@ -277,17 +297,21 @@ class Dataset:
 
     # -- engines --------------------------------------------------------------
     def engine(self, backend: str = "torch", device=None,
-               planner: str = "greedy",
-               plan_cache_size: int = 512) -> Engine:
+               planner: str = "greedy", plan_cache_size: int = 512,
+               group=None, dual_partition: bool = False) -> Engine:
         """An :class:`Engine` over this dataset, cached per configuration
         so repeated calls share plan caches.  ``device=None`` means the
-        dataset's device."""
+        dataset's device, ``group=None`` the dataset's group (of the
+        ``"distributed"`` backend)."""
         dev = resolve_device(self.device if device is None else device)
-        key = (backend, str(dev), planner, plan_cache_size)
+        group = self.group if group is None else group
+        key = (backend, str(dev), planner, plan_cache_size, id(group),
+               dual_partition)
         eng = self._engines.get(key)
         if eng is None:
             eng = Engine(self, backend=backend, device=dev,
-                         planner=planner, plan_cache_size=plan_cache_size)
+                         planner=planner, plan_cache_size=plan_cache_size,
+                         group=group, dual_partition=dual_partition)
             self._engines[key] = eng
         return eng
 

@@ -13,6 +13,10 @@
   through one batched launch per chunk of at most ``MAX_BATCH``;
 * a small ``metrics`` dict (``queries``, ``device_fallbacks``).
 
+Two backends: ``"torch"`` runs on one device, ``"distributed"`` on
+every rank of a ``torch.distributed`` process group (each rank builds
+the same engine and sends the same queries in the same order).
+
 S2RDF notes that repeated Virtuoso queries benefit from caching while its
 own runtimes are stable: here we cache *compilation*, never results.
 """
@@ -22,10 +26,11 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
-import torch
+import torch.distributed as dist
 
+from repro_torch.device import resolve_device
 from repro_torch.engine.backends import (
-    ExecutionContext, PreparedQuery, TorchBackend,
+    DistributedBackend, ExecutionContext, PreparedQuery, TorchBackend,
 )
 from repro_torch.engine.result import Result
 from repro_torch.engine.template import (
@@ -33,17 +38,6 @@ from repro_torch.engine.template import (
 )
 
 __all__ = ["Engine", "PlanCache", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means ``"cuda"``, which
-    raises when no CUDA device is present — the port never carries on
-    silently on the CPU.  Pass ``device="cpu"`` to run there."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
 
 
 class PlanCache:
@@ -78,10 +72,13 @@ class PlanCache:
 
 
 class Engine:
-    """Execute SPARQL text over a Dataset on one device.
+    """Execute SPARQL text over a Dataset.
 
-    ``backend`` is ``"torch"`` (the only backend of this package);
-    ``device`` is where the executors run — ``None`` means ``"cuda"``.
+    ``backend`` is ``"torch"`` (one device) or ``"distributed"`` (the
+    ranks of the process group ``group``, ``None`` meaning the default
+    group, which must be initialized; ``dual_partition`` adds the
+    object-partitioned table copies); ``device`` is where this process's
+    executors run — ``None`` means ``"cuda"``.
     """
 
     #: Most requests of one template in one batched launch.  Nothing is
@@ -90,18 +87,31 @@ class Engine:
     MAX_BATCH: int = 32
 
     def __init__(self, dataset, backend: str = "torch", device=None,
-                 planner: str = "greedy", plan_cache_size: int = 512):
-        if backend != TorchBackend.name:
+                 planner: str = "greedy", plan_cache_size: int = 512,
+                 group=None, dual_partition: bool = False):
+        names = [TorchBackend.name, DistributedBackend.name]
+        if backend not in names:
             raise ValueError(f"unknown backend {backend!r}; available: "
-                             f"['{TorchBackend.name}']")
+                             f"{names}")
+        if backend == DistributedBackend.name:
+            if not dist.is_available() or not dist.is_initialized():
+                raise ValueError(
+                    "the distributed backend needs an initialized process "
+                    "group: call torch.distributed.init_process_group(...) "
+                    "first (nccl on the card, gloo on the CPU)")
+            self._backend = DistributedBackend(dual_partition)
+        elif dual_partition:
+            raise ValueError("dual_partition applies to the distributed "
+                             "backend only")
+        else:
+            self._backend = TorchBackend()
         self.device = resolve_device(device)
         self.dataset = dataset
         self.planner = planner
-        self._backend = TorchBackend()
         self.ctx = ExecutionContext(catalog=dataset.catalog,
                                     dictionary=dataset.dictionary,
                                     planner=planner,
-                                    device=self.device)
+                                    device=self.device, group=group)
         self.cache = PlanCache(plan_cache_size)
         self.metrics: Dict[str, int] = {"queries": 0, "device_fallbacks": 0}
 

@@ -28,7 +28,8 @@ __all__ = ["CSRC", "SOURCES", "build_dir", "library_path", "build_all",
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source file under ``csrc/``
 SOURCES: Dict[str, str] = {"join_probe": "join_probe.cu",
-                           "semijoin_membership": "semijoin.cu"}
+                           "semijoin_membership": "semijoin.cu",
+                           "bucket_count": "bucketcount.cu"}
 NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler",
                          "-fPIC"]

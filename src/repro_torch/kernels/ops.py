@@ -16,13 +16,20 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["join_probe", "semijoin_mask", "launches", "reset_launches"]
+__all__ = ["join_probe", "semijoin_mask", "bucket_count", "launches",
+           "reset_launches"]
 
 #: threads of one block of the semi-join kernel (one probe key each)
 SEMIJOIN_THREADS = 256
 
+#: threads of one block of the bucket-count kernel
+BUCKET_THREADS = 256
+#: blocks of the bucket-count kernel per SM (each flushes one histogram)
+BUCKET_BLOCKS_PER_SM = 8
+
 #: kernel name -> launches since the last reset
-launches: Dict[str, int] = {"join_probe": 0, "semijoin_membership": 0}
+launches: Dict[str, int] = {"join_probe": 0, "semijoin_membership": 0,
+                            "bucket_count": 0}
 
 
 def reset_launches() -> None:
@@ -49,6 +56,17 @@ def _semijoin_fn():
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bucket_count_fn():
+    lib = build.load("bucket_count")
+    fn = lib.bucket_count_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -155,3 +173,52 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
                            f"{status}")
     launches["join_probe"] += 1
     return lo, cnt
+
+
+def bucket_count(keys: torch.Tensor, valid: torch.Tensor,
+                 n_buckets: int) -> torch.Tensor:
+    """int32 histogram of ``uint32(key) mod n_buckets`` over the rows that
+    are valid and whose key is not the probe pad 2^31-1 (see
+    :func:`repro_torch.kernels.ref.bucket_count_ref`).  ``keys`` int32
+    and ``valid`` bool, both 1-D of one length.
+
+    On CUDA this is the hand-written kernel ``csrc/bucketcount.cu``,
+    which replaces the TPU kernel
+    ``repro/kernels/bucketcount.py::bucket_count_kernel``.
+    """
+    n_buckets = int(n_buckets)
+    if n_buckets < 1:
+        raise ValueError(f"bucket_count: n_buckets must be >= 1, got "
+                         f"{n_buckets}")
+    if keys.shape != valid.shape:
+        raise ValueError(f"bucket_count: keys {tuple(keys.shape)} and valid "
+                         f"{tuple(valid.shape)} differ in shape")
+    if keys.device.type == "cpu" and valid.device.type == "cpu":
+        return ref.bucket_count_ref(keys, valid, n_buckets)
+    if keys.device.type != "cuda" or keys.device != valid.device:
+        raise ValueError(f"bucket_count: keys on {keys.device} and valid on "
+                         f"{valid.device}; both must be on one CUDA device "
+                         "(or both on the CPU)")
+    _check_int32_column("bucket_count", "keys", keys)
+    if valid.dtype != torch.bool or not valid.is_contiguous():
+        raise ValueError(f"bucket_count: valid must be a contiguous bool "
+                         f"tensor, got {valid.dtype}")
+    n = keys.numel()
+    if n >= 2**31:
+        raise ValueError(f"bucket_count: {n} keys would overflow an int32 "
+                         "count")
+    out = torch.zeros(n_buckets, dtype=torch.int32, device=keys.device)
+    if n == 0:
+        return out
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    n_blocks = min(-(-n // BUCKET_THREADS), sms * BUCKET_BLOCKS_PER_SM)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    with torch.cuda.device(keys.device):
+        status = _bucket_count_fn()(keys.data_ptr(), valid.data_ptr(), n,
+                                    n_buckets, n_blocks, BUCKET_THREADS,
+                                    out.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"bucket_count kernel launch failed: CUDA error "
+                           f"{status}")
+    launches["bucket_count"] += 1
+    return out

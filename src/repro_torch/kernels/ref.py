@@ -12,7 +12,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["join_probe_ref", "semijoin_membership_ref", "semijoin_pairs_ref"]
+__all__ = ["join_probe_ref", "semijoin_membership_ref", "semijoin_pairs_ref",
+           "bucket_count_ref"]
+
+#: the probe-side pad key: padded rows never count in a histogram
+PROBE_PAD = 2**31 - 1
 
 
 def join_probe_ref(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -53,3 +57,18 @@ def semijoin_pairs_ref(probe: torch.Tensor, build_sorted: torch.Tensor,
     count = torch.stack(counts) if counts else \
         torch.zeros(0, dtype=torch.int64, device=probe.device)
     return mask, count
+
+
+def bucket_count_ref(keys: torch.Tensor, valid: torch.Tensor,
+                     n_buckets: int) -> torch.Tensor:
+    """int32 histogram of length ``n_buckets``: row i adds one to bucket
+    ``uint32(keys[i]) mod n_buckets`` when ``valid[i]`` holds and its key
+    is not the probe pad 2^31-1.  The modulo is taken on the key's 32
+    bits read as unsigned, as the distributed shuffle routes rows, so a
+    negative key (UNBOUND -1, A_NULL -3) lands where ``repartition``
+    sends it."""
+    live = valid.to(torch.bool) & (keys != PROBE_PAD)
+    dest = (keys.to(torch.int64) & 0xFFFFFFFF) % n_buckets
+    hist = torch.zeros(n_buckets, dtype=torch.int64, device=keys.device)
+    hist.index_add_(0, dest[live], torch.ones_like(dest[live]))
+    return hist.to(torch.int32)

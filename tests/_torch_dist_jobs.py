@@ -1,0 +1,246 @@
+"""Jobs that the port's distributed tests run in a group of processes,
+one rank each, over gloo on the CPU, and :func:`run_group`, which starts
+such a group and collects its results.  A rank runs as
+
+    python tests/_torch_dist_jobs.py JOB RANK WORLD RDV_FILE OUT_DIR ARGS_JSON
+
+joins the group through ``init_method="file://RDV_FILE"`` (no TCP port,
+so parallel test workers never collide), runs ``JOB`` and pickles its
+result to ``OUT_DIR/JOB-RANK.pkl``.  This module imports the port only:
+nothing of JAX or of the JAX package, so a job also shows that the
+distributed engine runs without them.
+"""
+
+import datetime
+import json
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: seconds a collective may wait for the other ranks before it fails
+COLLECTIVE_TIMEOUT_S = 120
+#: seconds a spawned group (or a reference subprocess) may take in all
+GROUP_TIMEOUT_S = 300
+
+_SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def run_group(job, world, tmp_path, **args):
+    """Run ``world`` ranks of ``job`` and return each rank's result, in
+    rank order; fails if a rank fails or the group outlasts
+    ``GROUP_TIMEOUT_S`` (every rank is then killed)."""
+    out_dir = Path(tmp_path)
+    deadline = time.monotonic() + GROUP_TIMEOUT_S
+    env = dict(os.environ, PYTHONPATH=str(_SRC))
+    procs = []
+    for rank in range(world):
+        with open(out_dir / f"{job}-{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, job, str(rank), str(world),
+                 str(out_dir / f"{job}-rendezvous"), str(out_dir),
+                 json.dumps(args)],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, p in enumerate(procs):
+        log = (out_dir / f"{job}-{rank}.log").read_text()
+        assert p.returncode == 0, f"{job} rank {rank}:\n{log[-4000:]}"
+        with open(out_dir / f"{job}-{rank}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def post_order_combines(seg, out):
+    """The combine segments of a core tree in post-order (duck-typed, so
+    the same walk serves both packages' segment classes)."""
+    if hasattr(seg, "child"):
+        post_order_combines(seg.child, out)
+    elif hasattr(seg, "left"):
+        post_order_combines(seg.left, out)
+        post_order_combines(seg.right, out)
+        out.append(seg)
+    return out
+
+
+def executor_info(ex):
+    """What the cap-slot verifier reads of an executor, as plain data."""
+    comb = [ex._comb_index[id(s)]
+            for s in post_order_combines(ex.core.root, [])]
+    return {"caps": list(ex.caps), "mod_resize": bool(ex._mod_resize),
+            "n_pipeline": ex._n_pipeline, "gathered": bool(ex.gathered),
+            "comb": comb, "describe": ex.core.describe(),
+            "scan_copy": list(ex.scan_copy)}
+
+
+def _result(res):
+    return {"cols": res.cols, "data": np.asarray(res.data)}
+
+
+def job_suite(args):
+    """The first instance of every WatDiv basic template through the
+    distributed engine (rows, columns, exchanges, executor slots), every
+    instance single and batched, and ``args["dual"]`` again with
+    ``dual_partition=True``."""
+    from repro_torch import Dataset
+    from repro_torch.core import distributed as D
+    from repro_torch.rdf.workloads import basic_queries
+
+    ds = Dataset.watdiv(scale=args["scale"], seed=args["seed"],
+                        threshold=args["tau"], device="cpu")
+    eng = ds.engine("distributed")
+    out = {"templates": {}, "dual": {}}
+    for name, insts in basic_queries(ds.schema, seed=args["seed"]).items():
+        D.reset_exchanges()
+        first = eng.query(insts[0])
+        rec = dict(_result(first), exchanges=D.exchanges["all_to_all"])
+        prepared = eng.prepare(insts[0])
+        if hasattr(prepared, "executor"):
+            rec["info"] = executor_info(prepared.executor)
+        single = [eng.query(q) for q in insts]
+        batched = eng.query_batch(insts)
+        rec["batch_equal"] = all(
+            a.cols == b.cols and np.array_equal(a.data, b.data)
+            for a, b in zip(single, batched))
+        out["templates"][name] = rec
+    dual = ds.engine("distributed", dual_partition=True)
+    for name in args["dual"]:
+        q = basic_queries(ds.schema, seed=args["seed"])[name][0]
+        D.reset_exchanges()
+        res = dual.query(q)
+        out["dual"][name] = dict(
+            _result(res), exchanges=D.exchanges["all_to_all"],
+            info=executor_info(dual.prepare(q).executor))
+    out["fallbacks"] = eng.metrics["device_fallbacks"] + \
+        dual.metrics["device_fallbacks"]
+    return out
+
+
+def job_queries(args):
+    """``args["queries"]`` over ``args["triples"]`` through the
+    distributed engine, single and then all together in one batch."""
+    from repro_torch import Dataset
+
+    ds = Dataset.from_triples([tuple(t) for t in args["triples"]],
+                              device="cpu")
+    eng = ds.engine("distributed")
+    single = [_result(eng.query(q)) for q in args["queries"]]
+    batched = [_result(r) for r in eng.query_batch(list(args["queries"]))]
+    return {"single": single, "batched": batched,
+            "terms": list(ds.dictionary.id_to_term),
+            "fallbacks": eng.metrics["device_fallbacks"]}
+
+
+def job_repartition(args):
+    """``repartition`` of seeded keys (UNBOUND and negative ones among
+    them): what this rank sent and received, the flags, and the bucket
+    counts.  ``args["skew"]`` sends every row to rank 0; ``out_cap``
+    bounds the received relation."""
+    from repro_torch.core import distributed as D
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(100 + rank)
+    cap, n = args["cap"], args["n"]
+    keys = rng.integers(-2**31 + 8, 2**31 - 1, size=cap, dtype=np.int64)
+    keys[:6] = [-1, -3, -5, 0, 1, 2**31 - 2]
+    if args["skew"]:
+        keys = keys - (keys.astype(np.int64) & 0xFFFFFFFF) % world
+    keys = keys.astype(np.int32)
+    data = np.stack([keys, np.arange(cap, dtype=np.int32) + 1000 * rank],
+                    axis=1)
+    data[n:] = 2**31 - 1
+    t = torch.from_numpy(data)
+    D.reset_exchanges()
+    rows, n_out, ovf, sent = D.repartition(
+        t, torch.tensor(n, dtype=torch.int32), 0, None, args["out_cap"])
+    return {"sent_rows": data[:n], "recv": rows.numpy(),
+            "n": int(n_out), "overflow": bool(ovf), "sent": int(sent),
+            "exchanges": D.exchanges["all_to_all"]}
+
+
+def job_build(args):
+    """The distributed ExtVP build of WatDiv at each τ of ``args["taus"]``
+    (its catalog as plain arrays), and an append under it held against
+    a from-scratch build of the same triples."""
+    from repro_torch import Dataset
+
+    out = {"catalogs": {}}
+    for tau in args["taus"]:
+        ds = Dataset.watdiv(scale=args["scale"], seed=args["seed"],
+                            threshold=tau, build_backend="distributed",
+                            device="cpu")
+        ext = ds.catalog.extvp
+        out["catalogs"][tau] = {
+            "sf": dict(ext.sf), "sizes": dict(ext.sizes),
+            "tables": {k: np.asarray(t.rows) for k, t in ext.tables.items()},
+            "n_semijoins": ext.n_semijoins, "backend": ext.backend}
+    triples = ds.dictionary.decode_rows(np.asarray(ds.catalog.tt))
+    cut = len(triples) - len(triples) // 50
+    grown = Dataset.from_triples(triples[:cut], threshold=0.25,
+                                 build_backend="distributed", device="cpu")
+    report = grown.append_triples(triples[cut:])
+    scratch = Dataset.from_triples(triples, threshold=0.25,
+                                   build_backend="numpy", device="cpu")
+    a, b = grown.catalog.extvp, scratch.catalog.extvp
+    out["append_equal"] = (
+        a.sf == b.sf and a.sizes == b.sizes
+        and set(a.tables) == set(b.tables)
+        and all(a.tables[k].rows.tobytes() == b.tables[k].rows.tobytes()
+                for k in b.tables))
+    out["append_report"] = report
+    return out
+
+
+def job_isolation(args):
+    """The distributed engine and build over gloo, then the modules
+    loaded: none of JAX or of the JAX package may be among them."""
+    import repro_torch.core.distributed  # noqa: F401
+    from repro_torch import Dataset
+    from repro_torch.rdf.workloads import basic_queries
+
+    ds = Dataset.watdiv(scale=0.05, seed=1, threshold=0.25,
+                        build_backend="distributed", device="cpu")
+    eng = ds.engine("distributed")
+    qs = basic_queries(ds.schema, seed=1)
+    rows = sum(len(eng.query(q[0])) for q in qs.values())
+    rows += sum(len(r) for r in eng.query_batch(qs["L1"] + qs["C3"]))
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+    return {"rows": rows, "bad": bad}
+
+
+JOBS = {"suite": job_suite, "queries": job_queries,
+        "repartition": job_repartition, "build": job_build,
+        "isolation": job_isolation}
+
+
+def main() -> None:
+    job, rank, world, rdv, out_dir, args = sys.argv[1:7]
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=int(rank),
+        world_size=int(world),
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        result = JOBS[job](json.loads(args))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{job}-{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from _torch_dist_jobs import run_group
+
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
@@ -76,6 +78,15 @@ def test_load_path_imports_neither_jax_nor_repro():
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
 
 
+def test_distributed_engine_imports_neither_jax_nor_repro(tmp_path):
+    """Two ranks over gloo import ``repro_torch.core.distributed``, build
+    with the distributed build and serve through the distributed engine,
+    all through the port."""
+    for rank in run_group("isolation", 2, tmp_path):
+        assert rank["bad"] == []
+        assert rank["rows"] > 0
+
+
 def test_sources_import_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
@@ -102,6 +113,29 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         ds.engine(device="cuda")
     assert ds.engine().device.type == "cpu"
     assert build.SOURCES  # the kernels exist, built only on first use
+
+
+def test_executor_and_context_need_cuda_unless_asked_for_cpu():
+    """``PlanExecutor`` and ``ExecutionContext`` resolve a missing device
+    to ``"cuda"``, as ``Engine`` and ``Dataset`` do."""
+    from repro_torch import Dataset
+    from repro_torch.core.compiler import compile_core
+    from repro_torch.core.jexec import PlanExecutor
+    from repro_torch.core.sparql import parse_sparql
+    from repro_torch.engine.backends import ExecutionContext
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    ds = Dataset.from_triples([("a", "p", "b"), ("b", "p", "c")],
+                              device="cpu")
+    q = parse_sparql("SELECT * WHERE { ?x p ?y . ?y p ?z }", ds.dictionary)
+    cp = compile_core(q.root, ds.catalog)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlanExecutor(cp, ds.catalog)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExecutionContext(catalog=ds.catalog)
+    assert PlanExecutor(cp, ds.catalog, device="cpu").device.type == "cpu"
+    assert ExecutionContext(catalog=ds.catalog,
+                            device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
