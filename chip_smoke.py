@@ -9,16 +9,21 @@ Phases (any failure exits non-zero and prints no result line):
    source, all started together);
 2. each kernel against its plain PyTorch version on the card, exactly,
    on unit cases and at main-path shapes, with CUDA-event times of the
-   kernel, the plain version and the one-call library yardstick;
+   kernel, the plain version and the one-call library yardstick (the
+   join probe's unit cases at several ``ops.SMEM_KEYS``, so that every
+   stride of its search occurs; a misaligned build column must raise);
 3. the main path, with the kernels' launch counts reset just before and
    read just after: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
    the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
    the card (the semi-join kernel over every pair batch), then serves
    through ``Engine.query`` (every instance of the 20 basic templates)
    and ``Engine.query_batch`` (each template's instances in one call);
-   then the numpy ExtVP build over the same VP tables, which must give a
+   a pair of CUDA events around every join-probe call, read after the
+   suite (the probe's whole cost over the path, by probe size); then the
+   numpy ExtVP build over the same VP tables, which must give a
    byte-identical catalog, and both kernels timed again on the largest
-   inputs the main path gave them;
+   inputs the main path gave them (the join probe at 16,384 and 32,768
+   ``SMEM_KEYS`` too);
 4. the check: the card engine and the same port engine on the CPU serve
    the same queries, and every result must be equal row for row, with
    equal final capacities: every instance, single and batched.  At
@@ -46,8 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
    and serves all 20 templates, single and batched, held against the
    single-device card engine; a rank's failure fails the smoke.
 
-It prints one JSON line with phase 6's numbers, one with the kernels'
-numbers, then the card's name and power limit, then
+It prints one JSON line with phase 6's numbers, one with the join
+probe's numbers over the main path, one with the kernels' numbers, then
+the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -140,6 +146,44 @@ def probe_cases(gen: torch.Generator):
     b = torch.tensor([-5, -5, 0, 5, 5, 9, big - 1, big - 1],
                      dtype=torch.int32)
     cases.append(("sentinels", a, b))
+    # aimed at the search: runs longer than a segment, runs on splitters
+    # or filling the column, keys equal to splitters, all-pad probes and
+    # builds of pads (phase_kernels runs them at several SMEM_KEYS)
+    keys = torch.arange(-2, 130, dtype=torch.int32)
+    for n_b, r in [(64, 37), (200, 16), (1000, 37), (1000, 300), (2049, 64)]:
+        cases.append((f"runs of {r} in {n_b}", keys,
+                      torch.arange(n_b, dtype=torch.int32) // r))
+    b = torch.arange(0, 3 * 1024, 3, dtype=torch.int32)
+    cases.append(("keys on splitters", b[::8].clone(), b))
+    cases.append(("whole-column run",
+                  torch.tensor([6, 7, 8, big, -3], dtype=torch.int32),
+                  torch.full((777,), 7, dtype=torch.int32)))
+    cases.append(("all-pad probe", torch.full((300,), big, dtype=torch.int32),
+                  sorted_build(500, 0, 1000)))
+    cases.append(("all-pad build",
+                  torch.tensor([0, big, big - 1, -3, 5], dtype=torch.int32),
+                  torch.full((300,), big - 1, dtype=torch.int32)))
+    b = torch.full((1500,), big - 1, dtype=torch.int32)
+    b[:3] = -5
+    b[3:90] = sorted_build(87, 0, 40)
+    cases.append(("mostly-pad build",
+                  torch.cat([torch.arange(-6, 42, dtype=torch.int32),
+                             torch.tensor([big, -3, big - 1],
+                                          dtype=torch.int32)]), b))
+    cases.append(("long run of int32 max",
+                  torch.tensor([big, 9, big - 1], dtype=torch.int32),
+                  torch.cat([torch.arange(10, dtype=torch.int32),
+                             torch.full((100,), big, dtype=torch.int32)])))
+    for n_b in [100, 127, 128]:       # stride 2 at SMEM_KEYS 64
+        cases.append((f"runs past 64 in {n_b}",
+                      torch.arange(-1, 8, dtype=torch.int32),
+                      sorted_build(n_b, 0, 6)))
+    for n_b in [31, 33, 1023, 1025, 4096, 4097, 32768, 32769]:
+        b = sorted_build(n_b, 0, 2 * n_b)
+        a = torch.randint(-1, 2 * n_b + 2, (700,), generator=gen,
+                          dtype=torch.int32)
+        a[::3] = b[torch.randint(0, n_b, (len(a[::3]),), generator=gen)]
+        cases.append((f"ragged build {n_b}", a, b))
     return cases
 
 
@@ -180,11 +224,69 @@ def probe_numbers(ops, ref, a: torch.Tensor, b: torch.Tensor) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def smem_keys_ms(ops, ref, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The kernel's time at 16,384 and 32,768 staged splitters, in turns
+    (16K, 32K, 32K, 16K), each checked against the plain version."""
+    default, out = ops.SMEM_KEYS, {}
+    try:
+        for sk in (16384, 32768, 32768, 16384):
+            ops.SMEM_KEYS = sk
+            check_probe(ops, ref, a, b, f"SMEM_KEYS {sk}")
+            out.setdefault(sk, []).append(
+                cuda_time_ms(lambda: ops.join_probe(a, b)))
+    finally:
+        ops.SMEM_KEYS = default
+    return out
+
+
+def allocator_counts():
+    """``cudaMalloc`` calls and retries (cached blocks freed to make room)
+    of PyTorch's caching allocator so far."""
+    st = torch.cuda.memory_stats()
+    return st.get("num_device_alloc", 0), st.get("num_alloc_retries", 0)
+
+
+def probe_profile(ref, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """What the keys of one probe input are like: probe pads, keys
+    outside the build's range, keys that match and their mean run."""
+    _, cnt = ref.join_probe_ref(a, b)
+    hit = cnt > 0
+    live = b[b != 2**31 - 2]
+    out_of_range = (a < live[0]) | (a > live[-1]) if live.numel() else a == a
+    return {"n_a": a.numel(), "n_b": b.numel(),
+            "probe_pads": int((a == PROBE_PAD).sum()),
+            "build_pads": b.numel() - live.numel(),
+            "outside_build_range": int(out_of_range.sum()),
+            "matching": int(hit.sum()),
+            "mean_run_of_matching": float(cnt[hit].double().mean())
+            if bool(hit.any()) else 0.0}
+
+
 def phase_kernels(ops, ref) -> None:
     gen = torch.Generator().manual_seed(0)
-    for what, a, b in probe_cases(gen):
-        check_probe(ops, ref, a.cuda(), b.cuda(), what)
-        log(f"  join_probe == plain: {what}")
+    cases = [(what, a.cuda(), b.cuda()) for what, a, b in probe_cases(gen)]
+    default = ops.SMEM_KEYS
+    # small SMEM_KEYS give these sizes every stride from 1 to above 32
+    try:
+        for smem_keys in (default, 1, 4, 16, 64):
+            ops.SMEM_KEYS = smem_keys
+            for what, a, b in cases:
+                check_probe(ops, ref, a, b, f"{what}, SMEM_KEYS {smem_keys}")
+            log(f"  join_probe == plain at SMEM_KEYS {smem_keys}: "
+                f"{', '.join(w for w, _, _ in cases)}")
+    finally:
+        ops.SMEM_KEYS = default
+    b = torch.arange(100, dtype=torch.int32, device="cuda")
+    before = ops.launches["join_probe"]
+    try:
+        ops.join_probe(b[:10], b[1:])
+    except ValueError as e:
+        log(f"  join_probe refuses a misaligned build: {e}")
+    else:
+        raise AssertionError("join_probe took a build column that is not "
+                             "16-byte aligned")
+    if ops.launches["join_probe"] != before:
+        raise AssertionError("join_probe launched on a misaligned build")
     for n_a, n_b in [(1 << 22, 1 << 23), (1 << 28, 1 << 23)]:
         dev_gen = torch.Generator(device="cuda").manual_seed(n_a)
         a = torch.randint(0, 1 << 24, (n_a,), generator=dev_gen,
@@ -390,21 +492,61 @@ def phase_bucket_kernel(ops, ref) -> None:
 
 class ProbeRecorder:
     """Keeps the largest probe the main path hands the join-probe kernel,
-    so the kernel can be timed on real main-path inputs afterwards.  It
-    calls the wrapper unchanged; the launch count stays the wrapper's."""
+    so the kernel can be timed on real main-path inputs afterwards, and
+    records a pair of CUDA events around every call (read only by
+    :meth:`path_times`, after the run: no sync inside it).  It calls the
+    wrapper unchanged; the launch count stays the wrapper's."""
 
     def __init__(self, jexec):
         self.jexec = jexec
         self.inner = jexec.ops.join_probe
         self.best = None
         self.shapes = {}
+        self.events = []
 
     def __call__(self, a, b):
         key = (a.numel(), b.numel())
         self.shapes[key] = self.shapes.get(key, 0) + 1
         if self.best is None or a.numel() > self.best[0].numel():
             self.best = (a.clone(), b.clone())
-        return self.inner(a, b)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = allocator_counts()
+        start.record()
+        out = self.inner(a, b)
+        end.record()
+        grew = [x - y for x, y in zip(allocator_counts(), before)]
+        self.events.append((a.numel(), b.numel(), start, end, grew))
+        return out
+
+    def path_times(self) -> dict:
+        """The probe's whole cost over the run: the sum of every call's
+        event time, and that sum by ``n_a`` bucket (2^k <= n_a < 2^k+1)
+        with the launches, the slowest call, the largest ``n_b``, and the
+        ``cudaMalloc`` calls and allocator retries the calls made.  A
+        call's events enclose the whole wrapper, so when the card is idle
+        before it the time also holds the wrapper's host work (allocating
+        the outputs, the launch)."""
+        torch.cuda.synchronize()
+        total, buckets = 0.0, {}
+        for n_a, n_b, start, end, grew in self.events:
+            ms = start.elapsed_time(end)
+            total += ms
+            k = max(n_a, 1).bit_length() - 1
+            bk = buckets.setdefault(k, {"launches": 0, "ms": 0.0,
+                                        "max_call_ms": 0.0, "max_n_b": 0,
+                                        "cuda_mallocs": 0, "alloc_retries": 0,
+                                        "max_call_malloc": False})
+            bk["launches"] += 1
+            bk["ms"] += ms
+            bk["cuda_mallocs"] += grew[0]
+            bk["alloc_retries"] += grew[1]
+            if ms > bk["max_call_ms"]:
+                bk["max_call_ms"], bk["max_call_malloc"] = ms, grew[0] > 0
+            bk["max_n_b"] = max(bk["max_n_b"], n_b)
+        return {"calls": len(self.events), "total_ms": total,
+                "by_log2_n_a": {f"2^{k}": buckets[k]
+                                for k in sorted(buckets)}}
 
     def __enter__(self):
         self.jexec.ops = _OpsShim(self.jexec.ops, join_probe=self)
@@ -586,7 +728,20 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
     a, b = rec.best
     shapes = sorted(rec.shapes.items(), key=lambda kv: -kv[0][0])[:5]
     log(f"  largest join_probe shapes (n_a, n_b): count: {shapes}")
+    path = dict(rec.path_times(), **{
+        f"calls_n_b_le_{lim}": sum(c for (_, nb), c in rec.shapes.items()
+                                   if nb <= lim) for lim in (16384, 32768)})
+    log(f"  join_probe over the main path (CUDA events around each call): "
+        f"{path['calls']} calls, {path['total_ms']:.4f} ms in all; by n_a: "
+        f"{json.dumps(path['by_log2_n_a'])}; calls with n_b <= 16384: "
+        f"{path['calls_n_b_le_16384']}, <= 32768: "
+        f"{path['calls_n_b_le_32768']}")
+    path["largest"] = probe_profile(ref, a, b)
+    log(f"  the largest input's keys: {json.dumps(path['largest'])}")
     err = check_probe(ops, ref, a, b, "main-path inputs")
+    path["smem_keys_ms"] = smem_keys_ms(ops, ref, a, b)
+    log(f"  join_probe on the main path's largest inputs by SMEM_KEYS "
+        f"(ms): {path['smem_keys_ms']}")
     pn = probe_numbers(ops, ref, a, b)
     log(f"  join_probe on the main path's largest inputs "
         f"({pn['n_a']} x {pn['n_b']}): equal; kernel {pn['ms']:.4f} ms, "
@@ -599,7 +754,7 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
         ops, ref, srec.best, launches["semijoin_membership"])
     del srec
     torch.cuda.empty_cache()
-    return nums, ds, eng, queries
+    return nums, path, ds, eng, queries
 
 
 def semijoin_main_numbers(ops, ref, best, launches: int) -> dict:
@@ -1095,8 +1250,8 @@ def main() -> int:
     phase_semijoin_kernel(ops, ref)
     phase_bucket_kernel(ops, ref)
     log("[3] main path")
-    nums, ds, eng, queries = phase_main(args, ops, ref, jexec, eb, Dataset,
-                                        basic_queries)
+    nums, probe_path, ds, eng, queries = phase_main(
+        args, ops, ref, jexec, eb, Dataset, basic_queries)
     host_ext = phase_identity(ds, build_extvp)
     log(f"[4] card against CPU at scale {args.scale}")
     compare(ds, eng, queries, ops, skip={"C1", "C2"})
@@ -1131,6 +1286,7 @@ def main() -> int:
         "buffer_bytes": [r["buffer_bytes"] for r in ranks],
         "results_equal": [r["results_equal"] for r in ranks]}}}),
         flush=True)
+    print(json.dumps({"join_probe_path": probe_path}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

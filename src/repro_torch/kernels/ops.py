@@ -9,6 +9,7 @@ or the wrapper raises: there is no fallback.  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +22,18 @@ __all__ = ["join_probe", "semijoin_mask", "bucket_count", "launches",
 
 #: threads of one block of the semi-join kernel (one probe key each)
 SEMIJOIN_THREADS = 256
+
+#: splitters of the build column one join-probe block stages in shared
+#: memory (a power of two; 4 bytes each): a build column of at most this
+#: many keys sits there whole
+SMEM_KEYS = 32768
+#: threads of one block of the join-probe kernel
+PROBE_THREADS = 1024
+#: what one H100 SM holds: threads, and shared memory with the 1 KB the
+#: system keeps per block (CUDA C++ Programming Guide, compute capability 9.0)
+SM_THREADS = 2048
+SM_SMEM_BYTES = 233472
+BLOCK_SMEM_RESERVED = 1024
 
 #: threads of one block of the bucket-count kernel
 BUCKET_THREADS = 256
@@ -43,9 +56,36 @@ def _join_probe_fn():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _probe_plan(n_a: int, n_b: int, sms: int) -> Tuple[int, int, int, int]:
+    """The join-probe kernel's launch plan: ``(stride, n_splitters,
+    blocks, smem_bytes)``.  ``stride`` is the smallest power of two that
+    keeps the ``ceil(n_b / stride)`` splitters within ``SMEM_KEYS``; they
+    fill a search tree of the next power of two of slots, 4 bytes each.
+    ``blocks`` is the persistent grid: a block per ``PROBE_THREADS``
+    probe keys, at most as many as ``sms`` SMs hold at once with that
+    much shared memory (the launch cuts it further if registers hold
+    fewer)."""
+    stride = 1
+    while -(-n_b // stride) > SMEM_KEYS:
+        stride *= 2
+    n_splitters = -(-n_b // stride)
+    smem_bytes = 4 << max(n_splitters - 1, 0).bit_length() if n_b else 0
+    per_sm = min(SM_THREADS // PROBE_THREADS,
+                 SM_SMEM_BYTES // (smem_bytes + BLOCK_SMEM_RESERVED))
+    return stride, n_splitters, min(-(-n_a // PROBE_THREADS), sms * per_sm), \
+        smem_bytes
 
 
 def _semijoin_fn():
@@ -148,7 +188,9 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
     build pads 2^31-2, the negative UNBOUND keys) need no padding step:
     they never match, and a probe pad's ``lo`` is ``len(build_sorted)``.
     On CUDA this is the hand-written kernel ``csrc/join_probe.cu``, which
-    replaces the TPU kernel ``repro/kernels/mergejoin.py::join_probe_kernel``.
+    replaces the TPU kernel ``repro/kernels/mergejoin.py::join_probe_kernel``
+    and reads the build column in 16-byte vectors: a build column that is
+    not 16-byte aligned (a view at an offset) raises.
     """
     if probe.device.type == "cpu" and build_sorted.device.type == "cpu":
         return ref.join_probe_ref(probe, build_sorted)
@@ -158,16 +200,25 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
                          "device (or both on the CPU)")
     _check_int32_column("join_probe", "probe", probe)
     _check_int32_column("join_probe", "build_sorted", build_sorted)
+    if build_sorted.numel() and build_sorted.data_ptr() % 16:
+        raise ValueError("join_probe: the build column must be 16-byte "
+                         "aligned (a fresh tensor, not a view at an offset)")
+    n_a, n_b = probe.numel(), build_sorted.numel()
+    if n_b >= 2**31:
+        raise ValueError(f"join_probe: {n_b} build keys would overflow an "
+                         "int32 rank")
     lo = torch.empty_like(probe)
     cnt = torch.empty_like(probe)
-    n_a, n_b = probe.numel(), build_sorted.numel()
     if n_a == 0:
         return lo, cnt
+    sms = _sm_count(probe.device.index)
+    stride, n_splitters, blocks, smem = _probe_plan(n_a, n_b, sms)
     stream = torch.cuda.current_stream(probe.device).cuda_stream
     with torch.cuda.device(probe.device):
-        status = _join_probe_fn()(probe.data_ptr(), n_a,
-                                  build_sorted.data_ptr(), n_b,
-                                  lo.data_ptr(), cnt.data_ptr(), stream)
+        status = _join_probe_fn()(
+            probe.data_ptr(), n_a, build_sorted.data_ptr(), n_b,
+            lo.data_ptr(), cnt.data_ptr(), stride.bit_length() - 1,
+            n_splitters, smem, blocks, PROBE_THREADS, sms, stream)
     if status != 0:
         raise RuntimeError(f"join_probe kernel launch failed: CUDA error "
                            f"{status}")
