@@ -11,7 +11,11 @@ Phases (any failure exits non-zero and prints no result line):
    on unit cases and at main-path shapes, with CUDA-event times of the
    kernel, the plain version and the one-call library yardstick (the
    join probe's unit cases at several ``ops.SMEM_KEYS``, so that every
-   stride of its search occurs; a misaligned build column must raise);
+   stride of its search occurs; a misaligned build column must raise;
+   the semi-join's batches mix its bitmap and search paths, sit at the
+   edges of its density rule and have bitmap ranges that are not a
+   multiple of 32, and its bitmap words are held against their plain
+   build);
 3. the main path, with the kernels' launch counts reset just before and
    read just after: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
    the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
@@ -23,7 +27,9 @@ Phases (any failure exits non-zero and prints no result line):
    numpy ExtVP build over the same VP tables, which must give a
    byte-identical catalog, and both kernels timed again on the largest
    inputs the main path gave them (the join probe at 16,384 and 32,768
-   ``SMEM_KEYS`` too);
+   ``SMEM_KEYS`` too; the semi-join's batch with the pairs and segments
+   on each path of its plan, and the committed plan against one that
+   sends every segment to the search, in turns);
 4. the check: the card engine and the same port engine on the CPU serve
    the same queries, and every result must be equal row for row, with
    equal final capacities: every instance, single and batched.  At
@@ -43,9 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``Engine(backend="distributed")``, single and batched, each result
    equal as a multiset to the single-device card engine's (all but C1
    and C2, whose static shuffle buckets do not fit on the card at one
-   rank: ``ONE_RANK_CUT``); the
-   bucket-count kernel (every shuffle) timed on the largest input this
-   path gave it.  6b: two ranks that share the card, spawned by this
+   rank: ``ONE_RANK_CUT``); a pair of CUDA events around every
+   bucket-count call (every shuffle), summed over the path against its
+   bound, and the kernel timed on the largest input this path gave it.  6b: two ranks that share the card, spawned by this
    script, over gloo at ``--compare-scale``: each loads the store phase
    5 saved, builds ExtVP distributed (byte-identical to the numpy build)
    and serves all 20 templates, single and batched, held against the
@@ -306,9 +312,32 @@ def phase_kernels(ops, ref) -> None:
     torch.cuda.empty_cache()
 
 
-def semijoin_cases(gen: torch.Generator):
-    """(name, [(probe, build_sorted), ...]) pair batches on the host."""
+def span_build(rng, n: int, lo: int, span: int) -> torch.Tensor:
+    """``n`` ascending unique int32 keys, the first ``lo`` and the last
+    ``lo + span - 1``."""
+    if n == 1:
+        return torch.tensor([lo], dtype=torch.int32)
+    mid = rng.choice(span - 2, n - 2, replace=False) + 1 + lo
+    keys = np.sort(np.concatenate([[lo, lo + span - 1], mid]))
+    return torch.from_numpy(keys.astype(np.int32))
+
+
+def probe_near(rng, b: torch.Tensor, n: int) -> torch.Tensor:
+    """Probe keys around a build segment: members, keys inside and just
+    outside its range, the probe pad."""
+    lo, hi = int(b[0]), int(b[-1])
+    near = rng.integers(max(lo - 64, -2**31), min(hi + 65, PROBE_PAD - 1),
+                        n - n // 2 - 3)
+    edge = [max(lo - 1, -2**31), min(hi + 1, PROBE_PAD - 1), PROBE_PAD]
+    a = np.concatenate([rng.choice(b.numpy(), n // 2), near, edge])
+    return torch.from_numpy(rng.permutation(a).astype(np.int32))
+
+
+def semijoin_cases(gen: torch.Generator, rng):
+    """(name, [(probe, build_sorted), ...], which pairs take the bitmap
+    or None) pair batches on the host."""
     big = 2**31 - 1
+    floor = 65536                     # ops.SEMIJOIN_BITMAP_MIN_WORDS
 
     def build_of(n, hi):
         return torch.unique(torch.randint(0, hi, (n,), generator=gen,
@@ -317,25 +346,48 @@ def semijoin_cases(gen: torch.Generator):
     def probe_of(n, hi):
         return torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
 
+    mixed = [span_build(rng, 300, 1000, 1000), span_build(rng, 10, -1, 2**31),
+             span_build(rng, 16, 5000, 32 * floor + 1),
+             span_build(rng, 200_000, -300, 4_000_000),
+             span_build(rng, 1, 77, 1)]
+    edges = [span_build(rng, 100_000, 0, 32 * 100_000),
+             span_build(rng, 100_000, 0, 32 * 100_000 + 1),
+             span_build(rng, 16, 123, 32 * floor),
+             span_build(rng, 16, 123, 32 * floor + 1)]
+    odd = [span_build(rng, n, lo, span) for n, lo, span in
+           [(5, 0, 37), (40, -7, 1001), (3000, 11, 65_535), (1, 5, 1)]]
     return [
         # the pad sentinels: probe pads 2^31-1, build pads 2^31-2
         ("sentinels", [(torch.tensor([5, big, 9, big - 1, -1, 0, 7],
                                      dtype=torch.int32),
                         torch.tensor([-1, 0, 5, 9, big - 1],
-                                     dtype=torch.int32))]),
+                                     dtype=torch.int32))], [False]),
         ("empty build", [(torch.arange(50, dtype=torch.int32),
-                          torch.empty(0, dtype=torch.int32))]),
+                          torch.empty(0, dtype=torch.int32))], [False]),
         ("build of one key", [(probe_of(300, 4),
-                               torch.tensor([2], dtype=torch.int32))]),
+                               torch.tensor([2], dtype=torch.int32))],
+         [True]),
         ("probe not in order", [(torch.randperm(5000, generator=gen)
-                                 .to(torch.int32), build_of(2000, 6000))]),
+                                 .to(torch.int32), build_of(2000, 6000))],
+         [True]),
         ("ragged batch", [(probe_of(n_a, 900), build_of(n_b, 900))
                           for n_a, n_b in [(255, 7), (256, 1), (257, 300),
                                            (0, 5), (1, 0), (1000, 513),
-                                           (3001, 2000)]]),
+                                           (3001, 2000)]], None),
         ("64 pairs of up to 2^20 keys",
          [(probe_of(int(n_a), 1 << 21), build_of(int(n_b), 1 << 21))
-          for n_a, n_b in torch.randint(0, 1 << 20, (64, 2), generator=gen)]),
+          for n_a, n_b in torch.randint(0, 1 << 20, (64, 2), generator=gen)],
+         None),
+        # bitmap and search pairs in one launch
+        ("mixed bitmap and search pairs",
+         [(probe_near(rng, b, 20_000 + 9 * i), b)
+          for i, b in enumerate(mixed)], [True, False, False, True, True]),
+        # the density rule's edges: 1 word a key, and the 65,536-word floor
+        ("segments at the density threshold and one word past",
+         [(probe_near(rng, b, 50_000), b) for b in edges],
+         [True, False, True, False]),
+        ("bitmap ranges not a multiple of 32",
+         [(probe_near(rng, b, 4_001), b) for b in odd], [True] * 4),
     ]
 
 
@@ -349,9 +401,14 @@ def pack_pairs(batch):
     return probe, build, pairs
 
 
-def check_semijoin(ops, ref, probe, build, pairs, what: str) -> int:
+def check_semijoin(ops, ref, probe, build, pairs, what: str,
+                   expect_bitmap=None) -> int:
+    """The semi-join against its plain version, exactly: the mask, the
+    counts, the plan's bitmap words against their plain build, and the
+    pairs ``ops.semijoin_paths`` says took each path."""
     mask, counts = ops.semijoin_mask(probe, build, pairs)
     torch.cuda.synchronize()
+    paths = dict(ops.semijoin_paths)
     wmask, wcounts = ref.semijoin_pairs_ref(probe, build, pairs)
     if mask.dtype != torch.uint8 or counts.dtype != torch.int64:
         raise AssertionError(f"semijoin {what}: outputs not uint8 / int64")
@@ -361,46 +418,85 @@ def check_semijoin(ops, ref, probe, build, pairs, what: str) -> int:
     if err:
         raise AssertionError(f"semijoin {what}: kernel != plain "
                              f"(max abs err {err})")
+    plan = ops.semijoin_plan(build, pairs)
+    words = ops.semijoin_bitmaps(build, plan)
+    torch.cuda.synchronize()
+    if not torch.equal(words, ref.semijoin_bitmaps_ref(build, plan)):
+        raise AssertionError(f"semijoin {what}: bitmap words != plain")
+    on_bitmap = plan.bitmap[plan.seg_of_pair]
+    want = {"bitmap": int(on_bitmap.sum()),
+            "search": len(pairs) - int(on_bitmap.sum())}
+    if int(pairs[:, 1].sum()) and paths != want:
+        raise AssertionError(f"semijoin {what}: paths {paths} != plan {want}")
+    if expect_bitmap is not None and on_bitmap.tolist() != expect_bitmap:
+        raise AssertionError(f"semijoin {what}: bitmap path of the pairs "
+                             f"{on_bitmap.tolist()} != {expect_bitmap}")
     return err
 
 
+def tagged_keys(probe, build, pairs):
+    """Every pair's probe keys and build segment as int64 keys
+    ``pair << 32 | uint32(key)``: one ``torch.isin`` over the two computes
+    the batch's masks end to end."""
+    dev = probe.device
+    pairs_t = torch.from_numpy(pairs).to(dev)
+    pidx = torch.arange(len(pairs), device=dev, dtype=torch.int64)
+
+    def side(off, n, keys):
+        start = torch.cumsum(n, 0) - n
+        pos = torch.arange(int(n.sum()), device=dev) + \
+            torch.repeat_interleave(off - start, n)
+        tag = torch.repeat_interleave(pidx, n) << 32
+        return tag | (keys[pos].to(torch.int64) & 0xFFFFFFFF)
+
+    return (side(pairs_t[:, 0], pairs_t[:, 1], probe),
+            side(pairs_t[:, 2], pairs_t[:, 3], build))
+
+
 def semijoin_numbers(ops, ref, probe, build, pairs, reps: int) -> dict:
-    """Times and bound of the semi-join kernel on one pair batch; the
-    library yardstick (``torch.isin``) only for a batch of one pair."""
+    """Times and bound of the semi-join on one pair batch.  The library
+    yardstick is one ``torch.isin``: over the pair's keys for a batch of
+    one pair, else over the keys tagged with their pair
+    (:func:`tagged_keys`, made before the timing)."""
     pairs = np.asarray(pairs, dtype=np.int64)
     ms = cuda_time_ms(lambda: ops.semijoin_mask(probe, build, pairs), reps)
     plain_ms = cuda_time_ms(
         lambda: ref.semijoin_pairs_ref(probe, build, pairs), reps)
-    library_ms = None
     if len(pairs) == 1:
         po, pl, bo, bl = (int(x) for x in pairs[0])
         a, b = probe[po:po + pl], build[bo:bo + bl]
-        library_ms = cuda_time_ms(lambda: torch.isin(a, b), reps)
+        library = "torch.isin"
+    else:
+        a, b = tagged_keys(probe, build, pairs)
+        library = "torch.isin over int64 keys tagged with their pair"
+    library_ms = cuda_time_ms(lambda: torch.isin(a, b), reps)
+    del a, b
     n_keys = int(pairs[:, 1].sum())
     # bytes the function must move: each probe key read (4 B) and its
     # mask byte written, each distinct build segment read once, the
     # pair descriptors read and the int64 counts written
     builds = {(int(o), int(n)) for o, n in pairs[:, 2:4]}
-    nbytes = 5 * n_keys + 4 * sum(n for _, n in builds) + 48 * len(pairs)
-    # compares these inputs need: a lower-bound search of
-    # ceil(log2(build_len + 1)) steps per key and one equality test
-    steps = np.ceil(np.log2(pairs[:, 3] + 1)).astype(np.int64) + 1
-    nops = int((pairs[:, 1] * steps).sum())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / SCALAR_OPS_PER_S * 1e3
+    nbytes = 5 * n_keys + 4 * sum(n for _, n in builds) + 40 * len(pairs)
     return {"pairs": len(pairs), "n_keys": n_keys, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "library": library,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def phase_semijoin_kernel(ops, ref) -> None:
     gen = torch.Generator().manual_seed(1)
-    for what, batch in semijoin_cases(gen):
+    rng = np.random.default_rng(1)
+    for what, batch, expect in semijoin_cases(gen, rng):
         probe, build, pairs = pack_pairs(batch)
-        check_semijoin(ops, ref, probe.cuda(), build.cuda(), pairs, what)
+        probe, build = probe.cuda(), build.cuda()
+        check_semijoin(ops, ref, probe, build, pairs, what, expect)
+        # the probe as a view one key past a 16-byte boundary
+        shifted = torch.cat([probe[:1], probe])[1:]
+        check_semijoin(ops, ref, shifted, build, pairs, what + ", shifted",
+                       expect)
         log(f"  semijoin == plain: {what} ({len(pairs)} pairs, "
-            f"{int(pairs[:, 1].sum())} probe keys)")
+            f"{int(pairs[:, 1].sum())} probe keys; bitmap words equal; "
+            f"pairs by path {ops.semijoin_paths})")
 
 
 def bucket_cases(gen: torch.Generator):
@@ -521,30 +617,36 @@ class ProbeRecorder:
 
     def path_times(self) -> dict:
         """The probe's whole cost over the run: the sum of every call's
-        event time, and that sum by ``n_a`` bucket (2^k <= n_a < 2^k+1)
-        with the launches, the slowest call, the largest ``n_b``, and the
-        ``cudaMalloc`` calls and allocator retries the calls made.  A
-        call's events enclose the whole wrapper, so when the card is idle
-        before it the time also holds the wrapper's host work (allocating
-        the outputs, the launch)."""
+        event time and of its bound, and both by ``n_a`` bucket (2^k <=
+        n_a < 2^k+1) with the launches, the slowest call, the largest
+        ``n_b``, and the ``cudaMalloc`` calls and allocator retries the
+        calls made.  A call's events enclose the whole wrapper, so when
+        the card is idle before it the time also holds the wrapper's host
+        work (allocating the outputs, the launch)."""
         torch.cuda.synchronize()
-        total, buckets = 0.0, {}
+        total, bound, buckets = 0.0, 0.0, {}
         for n_a, n_b, start, end, grew in self.events:
             ms = start.elapsed_time(end)
+            # the bytes bound of probe_numbers
+            bms = (12 * n_a + 4 * n_b) / HBM_BYTES_PER_S * 1e3
             total += ms
+            bound += bms
             k = max(n_a, 1).bit_length() - 1
             bk = buckets.setdefault(k, {"launches": 0, "ms": 0.0,
+                                        "bound_ms": 0.0,
                                         "max_call_ms": 0.0, "max_n_b": 0,
                                         "cuda_mallocs": 0, "alloc_retries": 0,
                                         "max_call_malloc": False})
             bk["launches"] += 1
             bk["ms"] += ms
+            bk["bound_ms"] += bms
             bk["cuda_mallocs"] += grew[0]
             bk["alloc_retries"] += grew[1]
             if ms > bk["max_call_ms"]:
                 bk["max_call_ms"], bk["max_call_malloc"] = ms, grew[0] > 0
             bk["max_n_b"] = max(bk["max_n_b"], n_b)
         return {"calls": len(self.events), "total_ms": total,
+                "bound_ms": bound, "gap_ms": total - bound,
                 "by_log2_n_a": {f"2^{k}": buckets[k]
                                 for k in sorted(buckets)}}
 
@@ -558,25 +660,38 @@ class ProbeRecorder:
 
 class SemijoinRecorder:
     """Keeps the largest pair batch the main path hands the semi-join
-    kernel, and the wall time of each call up to the host's read of its
-    counts (which the build makes right after the call anyway).  It calls
-    the wrapper unchanged; the launch count stays the wrapper's."""
+    kernel, with the pairs its call sent down each path, and for each
+    call the wall time from a sync before it to a sync after it (the
+    host reads the counts right after the call anyway), the time that
+    first sync waited, and the ``cudaMalloc`` calls and allocator retries
+    the call made.  It calls the wrapper unchanged; the launch count
+    stays the wrapper's."""
 
     def __init__(self, eb):
         self.eb = eb
         self.inner = eb.ops.semijoin_mask
         self.best = None
+        self.paths = {}
         self.calls = []
 
     def __call__(self, probe, build, pairs=None):
         t = time.perf_counter()
+        torch.cuda.synchronize()         # work queued before the call
+        t0 = time.perf_counter()
+        before = allocator_counts()
         out = self.inner(probe, build, pairs)
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grew = [x - y for x, y in zip(allocator_counts(), before)]
         n_keys = int(np.asarray(pairs)[:, 1].sum())
-        self.calls.append((len(pairs), n_keys,
-                           (time.perf_counter() - t) * 1e3))
+        self.calls.append({"pairs": len(pairs), "probe_keys": n_keys,
+                           "ms": (t1 - t0) * 1e3,
+                           "queued_before_ms": (t0 - t) * 1e3,
+                           "cuda_mallocs": grew[0],
+                           "alloc_retries": grew[1]})
         if self.best is None or n_keys > int(self.best[2][:, 1].sum()):
             self.best = (probe, build, np.array(pairs, dtype=np.int64))
+            self.paths = dict(self.eb.ops.semijoin_paths)
         return out
 
     def __enter__(self):
@@ -696,8 +811,8 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
         f"{int(rep['n_semijoins'])} pairs semi-joined; generation + catalog "
         f"build {build_s:.1f} s (VP {rep['vp_build_seconds']:.3f} s, ExtVP "
         f"on the card {rep['extvp_build_seconds']:.3f} s)")
-    log(f"  semijoin calls of the build (pairs, probe keys, ms to the "
-        f"counts on the host): {srec.calls}")
+    log(f"  semijoin calls of the build (wall ms to the counts on the "
+        f"host): {json.dumps(srec.calls)}")
     eng = ds.engine()
     assert eng.device.type == "cuda"
     queries = basic_queries(ds.schema, seed=args.seed)
@@ -732,7 +847,9 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
         f"calls_n_b_le_{lim}": sum(c for (_, nb), c in rec.shapes.items()
                                    if nb <= lim) for lim in (16384, 32768)})
     log(f"  join_probe over the main path (CUDA events around each call): "
-        f"{path['calls']} calls, {path['total_ms']:.4f} ms in all; by n_a: "
+        f"{path['calls']} calls, {path['total_ms']:.4f} ms in all against "
+        f"a {path['bound_ms']:.4f} ms bound (gap {path['gap_ms']:.4f} ms); "
+        f"by n_a: "
         f"{json.dumps(path['by_log2_n_a'])}; calls with n_b <= 16384: "
         f"{path['calls_n_b_le_16384']}, <= 32768: "
         f"{path['calls_n_b_le_32768']}")
@@ -751,35 +868,130 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
                               max_abs_err=err)
     del rec, a, b
     nums["semijoin_membership"] = semijoin_main_numbers(
-        ops, ref, srec.best, launches["semijoin_membership"])
+        ops, ref, srec.best, launches["semijoin_membership"], srec.paths)
     del srec
     torch.cuda.empty_cache()
     return nums, path, ds, eng, queries
 
 
-def semijoin_main_numbers(ops, ref, best, launches: int) -> dict:
-    """The semi-join kernel against its plain version on the main path's
-    largest pair batch (the whole build at scale 340) and on its largest
-    pair; the JSON line reports the largest pair, which has a one-call
-    library yardstick."""
+def semijoin_plan_stats(ops, build, pairs) -> dict:
+    """Pairs and distinct build segments on each path of the committed
+    plan, the bitmaps' bytes, and a check that every segment within the
+    density rule took the bitmap (and no other did)."""
+    plan = ops.semijoin_plan(build, pairs)
+    n = plan.segs[:, 1]
+    bm = plan.bitmap
+    # the rule again, from the segments' keys on the card
+    first = build[torch.from_numpy(plan.segs[n > 0, 0]).cuda()].cpu()
+    last = build[torch.from_numpy(plan.segs[n > 0, 0] + n[n > 0] - 1)
+                 .cuda()].cpu()
+    words = -(-(last.numpy().astype(np.int64) -
+                first.numpy().astype(np.int64) + 1) // 32)
+    within = words <= np.maximum(ops.SEMIJOIN_BITMAP_DENSITY * n[n > 0],
+                                 ops.SEMIJOIN_BITMAP_MIN_WORDS)
+    if not np.array_equal(within, bm[n > 0]) or bm[n == 0].any():
+        raise AssertionError("semijoin plan: a segment within the density "
+                             "rule did not take the bitmap, or one outside "
+                             "it did")
+    on = bm[plan.seg_of_pair]
+    return {"pairs_bitmap": int(on.sum()), "pairs_search": int((~on).sum()),
+            "segments_bitmap": int(bm.sum()),
+            "segments_search": int((~bm).sum()),
+            "bitmap_bytes": 4 * plan.n_words,
+            "largest_bitmap_bytes": 4 * int(plan.words.max(initial=0)),
+            "build_keys_bitmap": int(n[bm].sum()),
+            "build_keys_search": int(n[~bm].sum())}
+
+
+def semijoin_split_ms(ops, probe, build, pairs, reps: int) -> dict:
+    """Where one call's time goes: the plan (its gather and copy of the
+    segments' ends to the host, by the host clock after a sync); by CUDA
+    events, the call after its plan (the descriptors' copy, the bitmap
+    build and the membership kernel, with no host sync, so the host runs
+    ahead of the card), the bitmap build alone, and the whole call, in
+    which each plan's sync waits for the call before it."""
+    plan = ops.semijoin_plan(build, pairs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        ops.semijoin_plan(build, pairs)
+    plan_ms = (time.perf_counter() - t) * 1e3 / reps
+    return {"plan_host_ms": plan_ms,
+            "after_plan_ms": cuda_time_ms(
+                lambda: ops._semijoin_launch(probe, build, pairs, plan),
+                reps),
+            "bitmap_build_ms": cuda_time_ms(
+                lambda: ops.semijoin_bitmaps(build, plan), reps),
+            "call_ms": cuda_time_ms(
+                lambda: ops.semijoin_mask(probe, build, pairs), reps)}
+
+
+def semijoin_bitmap_vs_search_ms(ops, ref, probe, build, pairs) -> dict:
+    """The committed plan against one that sends every segment to the
+    search (both plan constants 0), in turns (plan, search, search,
+    plan), each checked against the plain version."""
+    saved = ops.SEMIJOIN_BITMAP_DENSITY, ops.SEMIJOIN_BITMAP_MIN_WORDS
+    out = {"plan": [], "search": []}
+    try:
+        for which in ("plan", "search", "search", "plan"):
+            if which == "plan":
+                ops.SEMIJOIN_BITMAP_DENSITY, ops.SEMIJOIN_BITMAP_MIN_WORDS = \
+                    saved
+            else:
+                ops.SEMIJOIN_BITMAP_DENSITY = 0
+                ops.SEMIJOIN_BITMAP_MIN_WORDS = 0
+            check_semijoin(ops, ref, probe, build, pairs, f"{which} path")
+            out[which].append(cuda_time_ms(
+                lambda: ops.semijoin_mask(probe, build, pairs), 10))
+    finally:
+        ops.SEMIJOIN_BITMAP_DENSITY, ops.SEMIJOIN_BITMAP_MIN_WORDS = saved
+    return out
+
+
+def semijoin_main_numbers(ops, ref, best, launches: int,
+                          paths: dict) -> dict:
+    """The semi-join against its plain version on the main path's pair
+    batch (the whole build at scale 340: the JSON line's row) and on its
+    largest pair; the plan's paths and bitmaps; the committed plan
+    against the search alone."""
     probe, build, pairs = best
+    stats = semijoin_plan_stats(ops, build, pairs)
+    log(f"  semijoin plan of the main path's batch: {json.dumps(stats)}; "
+        f"ops.semijoin_paths after the build: {paths}")
+    if paths != {"bitmap": stats["pairs_bitmap"],
+                 "search": stats["pairs_search"]}:
+        raise AssertionError("semijoin: the build's paths differ from the "
+                             "plan of its batch")
+    if stats["pairs_bitmap"] <= 0:
+        raise AssertionError("semijoin: no pair of the main path took the "
+                             "bitmap")
     err = check_semijoin(ops, ref, probe, build, pairs, "main-path batch")
     bn = semijoin_numbers(ops, ref, probe, build, pairs, reps=10)
     log(f"  semijoin on the main path's batch ({bn['pairs']} pairs, "
-        f"{bn['n_keys']} probe keys): equal; kernel {bn['ms']:.4f} ms, "
-        f"plain {bn['plain_ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms "
-        f"({bn['bound_by']}, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        f"{bn['n_keys']} probe keys): equal, bitmap words equal; kernel "
+        f"{bn['ms']:.4f} ms, plain {bn['plain_ms']:.4f} ms, "
+        f"{bn['library']} {bn['library_ms']:.4f} ms, bound "
+        f"{bn['bound_ms']:.4f} ms ({bn['bound_by']}, "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    split = semijoin_split_ms(ops, probe, build, pairs, 10)
+    log(f"  semijoin on the main path's batch, split (ms): "
+        f"{json.dumps(split)}")
+    turns = semijoin_bitmap_vs_search_ms(ops, ref, probe, build, pairs)
+    log(f"  semijoin on the main path's batch, committed plan against "
+        f"every segment on the search, in turns (ms): {json.dumps(turns)}")
     j = int(np.lexsort((pairs[:, 3], pairs[:, 1]))[-1])
     one = pairs[j:j + 1]
     err = max(err, check_semijoin(ops, ref, probe, build, one,
                                   "main-path largest pair"))
     ln = semijoin_numbers(ops, ref, probe, build, one, reps=20)
+    lsplit = semijoin_split_ms(ops, probe, build, one, 20)
     log(f"  semijoin on the main path's largest pair ({int(one[0, 1])} "
-        f"probe keys x {int(one[0, 3])} build keys): equal; kernel "
-        f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, torch.isin "
-        f"{ln['library_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms "
-        f"({ln['bound_by']}); launches on the main path {launches}")
-    return dict(ln, launches=launches, max_abs_err=err)
+        f"probe keys x {int(one[0, 3])} build keys, "
+        f"{ops.semijoin_paths}): equal; kernel {ln['ms']:.4f} ms, plain "
+        f"{ln['plain_ms']:.4f} ms, torch.isin {ln['library_ms']:.4f} ms, "
+        f"bound {ln['bound_ms']:.4f} ms ({ln['bound_by']}); split (ms) "
+        f"{json.dumps(lsplit)}; launches on the main path {launches}")
+    return dict(bn, launches=launches, max_abs_err=err)
 
 
 def same_extvp(want, got, what: str) -> None:
@@ -965,21 +1177,54 @@ def same_multiset(a, b) -> bool:
 
 class BucketRecorder:
     """Keeps the largest input the main path hands the bucket-count
-    kernel, so the kernel can be timed on it afterwards.  It calls the
-    wrapper unchanged; the launch count stays the wrapper's."""
+    kernel, so the kernel can be timed on it afterwards, and records a
+    pair of CUDA events around every call (read only by
+    :meth:`path_times`, after the run).  It calls the wrapper unchanged;
+    the launch count stays the wrapper's."""
 
     def __init__(self, dist_mod):
         self.mod = dist_mod
         self.inner = dist_mod.ops.bucket_count
         self.best = None
         self.shapes = {}
+        self.events = []
 
     def __call__(self, keys, valid, n_buckets):
         key = (keys.numel(), n_buckets)
         self.shapes[key] = self.shapes.get(key, 0) + 1
         if self.best is None or keys.numel() > self.best[0].numel():
             self.best = (keys.clone(), valid.clone(), n_buckets)
-        return self.inner(keys, valid, n_buckets)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(keys, valid, n_buckets)
+        end.record()
+        self.events.append((keys.numel(), n_buckets, start, end))
+        return out
+
+    def path_times(self) -> dict:
+        """The bucket count's whole cost over the run: the sum of every
+        call's event time and of its bound, and both by key count (2^k <=
+        n < 2^k+1), so that launches x (time - bound) can be ranked
+        against the other kernels.  The events enclose the whole wrapper
+        (its output allocation and launch too)."""
+        torch.cuda.synchronize()
+        total, bound, buckets = 0.0, 0.0, {}
+        for n, nb, start, end in self.events:
+            ms = start.elapsed_time(end)
+            bms = (5 * n + 4 * nb) / HBM_BYTES_PER_S * 1e3
+            total += ms
+            bound += bms
+            k = max(n, 1).bit_length() - 1
+            bk = buckets.setdefault(k, {"launches": 0, "ms": 0.0,
+                                        "bound_ms": 0.0, "max_call_ms": 0.0})
+            bk["launches"] += 1
+            bk["ms"] += ms
+            bk["bound_ms"] += bms
+            bk["max_call_ms"] = max(bk["max_call_ms"], ms)
+        return {"calls": len(self.events), "total_ms": total,
+                "bound_ms": bound, "gap_ms": total - bound,
+                "by_log2_n": {f"2^{k}": buckets[k] for k in sorted(buckets)}}
 
     def __enter__(self):
         self.mod.ops = _OpsShim(self.mod.ops, bucket_count=self)
@@ -1087,6 +1332,12 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
         keys, valid, nb = brec.best
         shapes = sorted(brec.shapes.items(), key=lambda kv: -kv[0][0])[:5]
         log(f"  largest bucket_count inputs (keys, buckets): count: {shapes}")
+        bpath = brec.path_times()
+        log(f"  bucket_count over the distributed path (CUDA events around "
+            f"each call): {bpath['calls']} calls, {bpath['total_ms']:.4f} ms "
+            f"in all against a {bpath['bound_ms']:.4f} ms bound (gap "
+            f"{bpath['gap_ms']:.4f} ms); by n: "
+            f"{json.dumps(bpath['by_log2_n'])}")
         err = check_bucket(ops, ref, keys, valid, nb, "main-path input")
         bn = bucket_numbers(ops, ref, keys, valid, nb)
         log(f"  bucket_count on the main path's largest input ({bn['n']} "
@@ -1099,6 +1350,7 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
                    "build_s": build_s, "exchanges": ex["all_to_all"],
                    "buffer_bytes": ex["buffer_bytes"],
                    "bucket_count_launches": launches["bucket_count"],
+                   "bucket_count_path": bpath,
                    "p50_ms": {n: p(stats[n]["lat"], 50) for n in order}}
         return dict(bn, launches=launches["bucket_count"],
                     max_abs_err=err), numbers

@@ -10,18 +10,28 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["join_probe", "semijoin_mask", "bucket_count", "launches",
-           "reset_launches"]
+__all__ = ["join_probe", "semijoin_mask", "semijoin_plan",
+           "semijoin_bitmaps", "SemijoinPlan", "bucket_count", "launches",
+           "reset_launches", "semijoin_paths"]
 
-#: threads of one block of the semi-join kernel (one probe key each)
+#: threads of one block of the semi-join membership kernel and the probe
+#: keys each takes (four 16-byte vectors: ``4 * VECS`` in semijoin.cu),
+#: and threads of one block of its bitmap build (one build key each)
 SEMIJOIN_THREADS = 256
+SEMIJOIN_KEYS_PER_THREAD = 16
+SEMIJOIN_BITMAP_THREADS = 256
+#: a build segment gets a presence bitmap when its id range, in 32-bit
+#: words, is at most max(DENSITY * its keys, MIN_WORDS) (65,536 words =
+#: 256 KB); every other segment keeps the binary search
+SEMIJOIN_BITMAP_DENSITY = 1
+SEMIJOIN_BITMAP_MIN_WORDS = 65536
 
 #: splitters of the build column one join-probe block stages in shared
 #: memory (a power of two; 4 bytes each): a build column of at most this
@@ -43,6 +53,10 @@ BUCKET_BLOCKS_PER_SM = 8
 #: kernel name -> launches since the last reset
 launches: Dict[str, int] = {"join_probe": 0, "semijoin_membership": 0,
                             "bucket_count": 0}
+
+
+#: pairs of the last semi-join call on CUDA that took each path
+semijoin_paths: Dict[str, int] = {"bitmap": 0, "search": 0}
 
 
 def reset_launches() -> None:
@@ -88,16 +102,21 @@ def _probe_plan(n_a: int, n_b: int, sms: int) -> Tuple[int, int, int, int]:
         smem_bytes
 
 
-def _semijoin_fn():
+def _semijoin_fns():
     lib = build.load("semijoin_membership")
-    fn = lib.semijoin_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    fb, fm = lib.semijoin_bitmap_launch, lib.semijoin_launch
+    if fb.argtypes is None:
+        fb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fb.restype = ctypes.c_int
+    if fm.argtypes is None:
+        fm.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fm.restype = ctypes.c_int
+    return fb, fm
 
 
 def _bucket_count_fn():
@@ -117,11 +136,143 @@ def _check_int32_column(fn: str, name: str, t: torch.Tensor) -> None:
                          f"tensor, got {t.dtype} {tuple(t.shape)}")
 
 
+class SemijoinPlan(NamedTuple):
+    """Which path each build segment of a semi-join batch takes, and
+    where its presence bitmap lies.  Arrays are indexed by distinct
+    segment (``segs``, ascending) unless named otherwise."""
+
+    segs: np.ndarray         # int64 (S, 2): distinct (build_off, build_len)
+    seg_of_pair: np.ndarray  # int64 (P,): each pair's segment
+    bitmap: np.ndarray       # bool (S,): the segment takes a bitmap
+    word_off: np.ndarray     # int64 (S,): its first word; -1 on the search path
+    lo: np.ndarray           # int64 (S,): the id of its bit 0 (first key)
+    words: np.ndarray        # int64 (S,): its 32-bit words (0: search)
+    n_words: int             # words of all the batch's bitmaps
+
+
+def _build_segments(pairs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct build segments (build_off, build_len) of a batch,
+    ascending, and the index of each pair's segment among them."""
+    seg = pairs[:, 2:4].reshape(-1, 2)
+    order = np.lexsort((seg[:, 1], seg[:, 0]))
+    ordered = seg[order]
+    new = np.ones(len(ordered), dtype=bool)
+    new[1:] = (ordered[1:] != ordered[:-1]).any(axis=1)
+    inv = np.empty(len(ordered), dtype=np.int64)
+    inv[order] = np.cumsum(new) - 1
+    return ordered[new].astype(np.int64), inv
+
+
+def _semijoin_plan(pairs: np.ndarray, first: np.ndarray, last: np.ndarray,
+                   segments: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                   ) -> SemijoinPlan:
+    """The semi-join kernel's plan for a batch, from the first and last
+    key of each distinct build segment (in the order of
+    :func:`_build_segments`; ignored for an empty segment).
+
+    A segment takes a bitmap of ``ceil((last - first + 1) / 32)`` words
+    when that is at most ``max(SEMIJOIN_BITMAP_DENSITY * build_len,
+    SEMIJOIN_BITMAP_MIN_WORDS)``; an empty segment and every other one
+    keep the binary search.  One bitmap per distinct segment, however
+    many pairs read it; the bitmaps lie end to end.  Ranges are int64: a
+    segment from -1 to 2^31-2 spans 2^31 ids.  ``segments`` is
+    :func:`_build_segments` of ``pairs`` where the caller has it."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 4)
+    segs, seg_of_pair = segments or _build_segments(pairs)
+    n = segs[:, 1]
+    first = np.asarray(first, dtype=np.int64).reshape(-1)
+    last = np.asarray(last, dtype=np.int64).reshape(-1)
+    span = np.where(n > 0, last - first + 1, 0)
+    words = -(-span // 32)
+    limit = np.maximum(SEMIJOIN_BITMAP_DENSITY * n,
+                       SEMIJOIN_BITMAP_MIN_WORDS)
+    bitmap = (n > 0) & (words <= limit)
+    words = np.where(bitmap, words, 0).astype(np.int64)
+    ends = np.cumsum(words)
+    return SemijoinPlan(
+        segs=segs, seg_of_pair=seg_of_pair, bitmap=bitmap,
+        word_off=np.where(bitmap, ends - words, -1).astype(np.int64),
+        lo=np.where(bitmap, first, 0).astype(np.int64), words=words,
+        n_words=int(ends[-1]) if len(ends) else 0)
+
+
+def semijoin_plan(build_sorted: torch.Tensor,
+                  pairs: np.ndarray) -> SemijoinPlan:
+    """:func:`_semijoin_plan` over the keys of ``build_sorted``: the first
+    and last key of each distinct non-empty segment come from one gather
+    and one small copy to the host (on the card, the semi-join's only
+    host sync)."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 4)
+    segments = _build_segments(pairs)
+    segs = segments[0]
+    live = segs[:, 1] > 0
+    first = np.zeros(len(segs), dtype=np.int64)
+    last = np.zeros(len(segs), dtype=np.int64)
+    if live.any():
+        off, n = segs[live, 0], segs[live, 1]
+        idx = torch.from_numpy(np.concatenate([off, off + n - 1]))
+        ends = torch.index_select(build_sorted, 0,
+                                  idx.to(build_sorted.device)).cpu().numpy()
+        first[live] = ends[:len(off)]
+        last[live] = ends[len(off):]
+    return _semijoin_plan(pairs, first, last, segments)
+
+
+def _bitmap_desc(plan: SemijoinPlan) -> Tuple[np.ndarray, int, int]:
+    """The bitmap-build kernel's arguments: int64 rows (build_off,
+    build_len, word_off, lo) of each bitmap segment followed by each
+    one's first block, flat; the segments; the blocks."""
+    sel = np.nonzero(plan.bitmap)[0]
+    segs = plan.segs[sel]
+    blocks = -(-segs[:, 1] // SEMIJOIN_BITMAP_THREADS)
+    start = np.cumsum(blocks) - blocks
+    flat = np.concatenate([segs, plan.word_off[sel, None],
+                           plan.lo[sel, None]], axis=1).reshape(-1)
+    return np.concatenate([flat, start]), len(sel), int(blocks.sum())
+
+
+def _launch_bitmaps(build_sorted: torch.Tensor, words: torch.Tensor,
+                    desc: torch.Tensor, n_segs: int, n_blocks: int,
+                    stream: int) -> None:
+    if n_segs == 0:
+        return
+    status = _semijoin_fns()[0](
+        build_sorted.data_ptr(), desc.data_ptr(),
+        desc.data_ptr() + 8 * 4 * n_segs, n_segs, n_blocks,
+        SEMIJOIN_BITMAP_THREADS, words.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"semijoin bitmap kernel launch failed: CUDA "
+                           f"error {status}")
+
+
+def semijoin_bitmaps(build_sorted: torch.Tensor,
+                     plan: SemijoinPlan) -> torch.Tensor:
+    """The presence bitmaps of ``plan``: int32 (``plan.n_words``,), bit
+    ``key - lo`` of each bitmap segment's words set for each of its keys.
+    On CUDA this is the bitmap-build kernel of ``csrc/semijoin.cu``, as
+    :func:`semijoin_mask` launches it (a call here is not counted in
+    ``launches``); on the CPU its plain version."""
+    if build_sorted.device.type == "cpu":
+        return ref.semijoin_bitmaps_ref(build_sorted, plan)
+    if build_sorted.device.type != "cuda":
+        raise ValueError(f"semijoin_bitmaps: build on {build_sorted.device}; "
+                         "it must be on a CUDA device (or the CPU)")
+    _check_int32_column("semijoin_bitmaps", "build_sorted", build_sorted)
+    dev = build_sorted.device
+    words = torch.zeros(plan.n_words, dtype=torch.int32, device=dev)
+    flat, n_segs, n_blocks = _bitmap_desc(plan)
+    desc = torch.from_numpy(flat).to(dev)
+    with torch.cuda.device(dev):
+        _launch_bitmaps(build_sorted, words, desc, n_segs, n_blocks,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    return words
+
+
 def semijoin_mask(probe: torch.Tensor, build_sorted: torch.Tensor,
                   pairs: Optional[np.ndarray] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Semi-join membership for a batch of (probe, build) pairs in one
-    launch.
+    call.
 
     ``probe`` and ``build_sorted`` are ragged int32 key arrays; row j of
     the int64 (P, 4) host array ``pairs`` is (probe_off, probe_len,
@@ -134,7 +285,12 @@ def semijoin_mask(probe: torch.Tensor, build_sorted: torch.Tensor,
 
     On CUDA this is the hand-written kernel ``csrc/semijoin.cu``, which
     replaces the TPU kernel
-    ``repro/kernels/semijoin.py::semijoin_membership_kernel``.
+    ``repro/kernels/semijoin.py::semijoin_membership_kernel``: the plan
+    (:func:`semijoin_plan`) gives each dense build segment a presence
+    bitmap, built by one launch, and one launch then probes every pair,
+    through its segment's bitmap or by binary search.  Each call that
+    launches adds one to ``launches["semijoin_membership"]`` and sets
+    ``semijoin_paths`` to the pairs on each path.
     """
     if pairs is None:
         pairs = np.array([[0, probe.numel(), 0, build_sorted.numel()]],
@@ -153,29 +309,53 @@ def semijoin_mask(probe: torch.Tensor, build_sorted: torch.Tensor,
                          "CUDA device (or both on the CPU)")
     _check_int32_column("semijoin_mask", "probe", probe)
     _check_int32_column("semijoin_mask", "build_sorted", build_sorted)
+    if not pairs[:, 1].any():
+        semijoin_paths.update(bitmap=0, search=0)
+        return (torch.empty(0, dtype=torch.uint8, device=probe.device),
+                torch.zeros(len(pairs), dtype=torch.int64,
+                            device=probe.device))
+    return _semijoin_launch(probe, build_sorted, pairs,
+                            semijoin_plan(build_sorted, pairs))
+
+
+def _semijoin_launch(probe: torch.Tensor, build_sorted: torch.Tensor,
+                     pairs: np.ndarray, plan: SemijoinPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`semijoin_mask` on CUDA after its plan: one copy of the
+    descriptors to the card, the bitmap build, the membership kernel.
+    No host sync."""
     dev = probe.device
     n_pairs = len(pairs)
-    out_off = np.concatenate([[0], np.cumsum(pairs[:, 1])]).astype(np.int64)
+    out_off = np.cumsum(pairs[:, 1])
     mask = torch.empty(int(out_off[-1]), dtype=torch.uint8, device=dev)
     counts = torch.zeros(n_pairs, dtype=torch.int64, device=dev)
-    blocks = -(-pairs[:, 1] // SEMIJOIN_THREADS)
-    n_blocks = int(blocks.sum())
-    if n_blocks == 0:
-        return mask, counts
-    block_start = np.concatenate([[0], np.cumsum(blocks)[:-1]])
-    desc = torch.from_numpy(np.concatenate(
-        [pairs, out_off[:-1, None]], axis=1).astype(np.int64)).to(dev)
-    starts = torch.from_numpy(block_start.astype(np.int64)).to(dev)
+    tile = SEMIJOIN_THREADS * SEMIJOIN_KEYS_PER_THREAD
+    blocks = -(-pairs[:, 1] // tile)
+    seg = plan.seg_of_pair
+    # one copy to the card: the pairs' descriptors and first blocks, then
+    # the bitmap segments'
+    pair_desc = np.concatenate(
+        [pairs, (out_off - pairs[:, 1])[:, None], plan.word_off[seg, None],
+         plan.lo[seg, None], plan.words[seg, None]], axis=1).reshape(-1)
+    bitmap_desc, n_segs, n_seg_blocks = _bitmap_desc(plan)
+    arr = torch.from_numpy(np.concatenate(
+        [pair_desc, np.cumsum(blocks) - blocks, bitmap_desc])).to(dev)
+    words = torch.zeros(plan.n_words, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        status = _semijoin_fn()(probe.data_ptr(), build_sorted.data_ptr(),
-                                desc.data_ptr(), starts.data_ptr(), n_pairs,
-                                n_blocks, SEMIJOIN_THREADS, mask.data_ptr(),
-                                counts.data_ptr(), stream)
+        _launch_bitmaps(build_sorted, words, arr[pair_desc.size + n_pairs:],
+                        n_segs, n_seg_blocks, stream)
+        status = _semijoin_fns()[1](
+            probe.data_ptr(), build_sorted.data_ptr(), words.data_ptr(),
+            arr.data_ptr(), arr.data_ptr() + 8 * pair_desc.size, n_pairs,
+            int(blocks.sum()), SEMIJOIN_THREADS, mask.data_ptr(),
+            counts.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"semijoin kernel launch failed: CUDA error "
                            f"{status}")
     launches["semijoin_membership"] += 1
+    n_bitmap = int(plan.bitmap[seg].sum())
+    semijoin_paths.update(bitmap=n_bitmap, search=n_pairs - n_bitmap)
     return mask, counts
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["join_probe_ref", "semijoin_membership_ref", "semijoin_pairs_ref",
+           "semijoin_bitmaps_ref", "semijoin_pairs_bitmap_ref",
            "bucket_count_ref"]
 
 #: the probe-side pad key: padded rows never count in a histogram
@@ -50,6 +51,54 @@ def semijoin_pairs_ref(probe: torch.Tensor, build_sorted: torch.Tensor,
     for p_off, p_len, b_off, b_len in np.asarray(pairs, dtype=np.int64):
         m = semijoin_membership_ref(probe[p_off:p_off + p_len],
                                     build_sorted[b_off:b_off + b_len])
+        masks.append(m.to(torch.uint8))
+        counts.append(m.sum(dtype=torch.int64))
+    mask = torch.cat(masks) if masks else \
+        torch.zeros(0, dtype=torch.uint8, device=probe.device)
+    count = torch.stack(counts) if counts else \
+        torch.zeros(0, dtype=torch.int64, device=probe.device)
+    return mask, count
+
+
+def semijoin_bitmaps_ref(build_sorted: torch.Tensor, plan) -> torch.Tensor:
+    """The presence bitmaps of a semi-join plan (``ops.SemijoinPlan``):
+    int32 (``plan.n_words``,); for each segment on the bitmap path, bit
+    ``x & 31`` of word ``plan.word_off + (x >> 5)`` is set for each of its
+    keys, ``x = key - plan.lo``, and every other bit is clear."""
+    acc = torch.zeros(plan.n_words, dtype=torch.int64,
+                      device=build_sorted.device)
+    for s in np.nonzero(plan.bitmap)[0]:
+        off, n = (int(v) for v in plan.segs[s])
+        x = torch.unique(build_sorted[off:off + n].to(torch.int64)) - \
+            int(plan.lo[s])
+        # distinct keys set distinct bits, so a sum is their OR
+        acc.index_add_(0, int(plan.word_off[s]) + (x >> 5),
+                       torch.ones_like(x) << (x & 31))
+    return torch.where(acc >= 2**31, acc - 2**32, acc).to(torch.int32)
+
+
+def semijoin_pairs_bitmap_ref(probe: torch.Tensor, build_sorted: torch.Tensor,
+                              pairs: np.ndarray, plan, words: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched semi-join of ``ops.semijoin_mask`` along its plan: a
+    pair whose segment is on the bitmap path reads its key's bit in
+    ``words`` (a key outside the bitmap's range is no member), any other
+    pair searches its build segment.  The same (mask, counts) as
+    :func:`semijoin_pairs_ref`."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 4)
+    bits = words.to(torch.int64) & 0xFFFFFFFF
+    masks, counts = [], []
+    for j, (p_off, p_len, b_off, b_len) in enumerate(pairs):
+        a = probe[p_off:p_off + p_len]
+        s = int(plan.seg_of_pair[j])
+        if plan.bitmap[s]:
+            x = a.to(torch.int64) - int(plan.lo[s])
+            inside = (x >= 0) & (x < 32 * int(plan.words[s]))
+            xc = torch.where(inside, x, torch.zeros_like(x))
+            w = bits[int(plan.word_off[s]) + (xc >> 5)]
+            m = (inside & (((w >> (xc & 31)) & 1) == 1)).to(torch.int32)
+        else:
+            m = semijoin_membership_ref(a, build_sorted[b_off:b_off + b_len])
         masks.append(m.to(torch.uint8))
         counts.append(m.sum(dtype=torch.int64))
     mask = torch.cat(masks) if masks else \

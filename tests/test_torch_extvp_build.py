@@ -21,14 +21,15 @@ from repro.core.vp import build_extvp as ref_build_extvp
 from repro.core.vp import build_vp as ref_build_vp
 from repro.engine import Dataset as RefDataset
 from repro.kernels import ops as ref_ops
+from repro.kernels import semijoin as ref_semijoin
 
 from repro_torch import Dataset
 from repro_torch.core import extvp_build as eb
 from repro_torch.core.vp import OS, SO, SS, build_extvp, build_vp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.rdf.generator import WatDivConfig, generate_watdiv
 
-from test_torch_semijoin import CASES, _pack
+from test_torch_semijoin import CASES, PLAN_CASES, _pack
 
 TAUS = (0.25, 1.0)
 
@@ -67,6 +68,41 @@ def test_semijoin_mask_matches_reference(name, batch):
             jnp.asarray(a), jnp.asarray(b), force_pallas=True))
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, pallas)
+        assert int(counts[j]) == int(want.sum())
+
+
+def _pad(x, mult, fill):
+    return np.concatenate([x, np.full(-len(x) % mult or
+                                      (mult if not len(x) else 0), fill,
+                                      np.int32)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["mixed-paths", "ragged-batch"])
+def test_bitmap_path_matches_pallas_interpret(name):
+    """The port's plain bitmap path (its plan, the plain bitmap build and
+    the plain probe through it) against the reference's Pallas kernel in
+    interpret mode, pair by pair on the same numpy inputs: equal.  The
+    reference pads a build to its tile with BUILD_PAD, so its inputs hold
+    no BUILD_PAD probe key (as ids never are): such keys become
+    PROBE_PAD here, for both."""
+    batch = [(np.where(pa == ref_ops.BUILD_PAD, ref_ops.PROBE_PAD,
+                       pa).astype(np.int32), pb)
+             for pa, pb in dict(PLAN_CASES)[name]]
+    probe, build_, pairs = _pack(batch)
+    a, b = torch.from_numpy(probe), torch.from_numpy(build_)
+    plan = ops.semijoin_plan(b, pairs)
+    assert plan.bitmap.any()
+    words = ref.semijoin_bitmaps_ref(b, plan)
+    mask, counts = ref.semijoin_pairs_bitmap_ref(a, b, pairs, plan, words)
+    start = 0
+    for j, (pa, pb) in enumerate(batch):
+        got = mask.numpy()[start:start + len(pa)]
+        start += len(pa)
+        want = np.asarray(ref_semijoin.semijoin_membership_pallas(
+            jnp.asarray(_pad(pa, ref_semijoin.TILE_A, ref_ops.PROBE_PAD)),
+            jnp.asarray(_pad(pb, ref_semijoin.TILE_B, ref_ops.BUILD_PAD)),
+            interpret=True))[:len(pa)]
+        np.testing.assert_array_equal(got, want)
         assert int(counts[j]) == int(want.sum())
 
 
