@@ -15,7 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
    the semi-join's batches mix its bitmap and search paths, sit at the
    edges of its density rule and have bitmap ranges that are not a
    multiple of 32, and its bitmap words are held against their plain
-   build);
+   build; the bucket count on every path and both sides of each cut,
+   sizes around 16 and 4,096 keys, key and validity views at offsets of
+   0-3 keys, with the register cut as committed and at 0, and at 2^28
+   keys with 1 and 2 buckets its register path against its shared
+   histogram in turns);
 3. the main path, with the kernels' launch counts reset just before and
    read just after: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
    the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
@@ -51,7 +55,10 @@ Phases (any failure exits non-zero and prints no result line):
    and C2, whose static shuffle buckets do not fit on the card at one
    rank: ``ONE_RANK_CUT``); a pair of CUDA events around every
    bucket-count call (every shuffle), summed over the path against its
-   bound, and the kernel timed on the largest input this path gave it.  6b: two ranks that share the card, spawned by this
+   bound; the kernel timed on the largest input this path gave it
+   (repeated, so the input sits in L2; repeated with the host's work
+   hidden; with L2 flushed before each call), and a host-clock split of
+   one small call.  6b: two ranks that share the card, spawned by this
    script, over gloo at ``--compare-scale``: each loads the store phase
    5 saved, builds ExtVP distributed (byte-identical to the numpy build)
    and serves all 20 templates, single and batched, held against the
@@ -66,6 +73,7 @@ the card's name and power limit, then
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -539,25 +547,249 @@ def check_bucket(ops, ref, keys, valid, nb: int, what: str) -> int:
 def bucket_numbers(ops, ref, keys, valid, nb: int) -> dict:
     """Times and bound of the bucket count on one input.  The library
     yardstick is ``torch.bincount`` over the destination column, which
-    one elementwise pass computes and is timed with."""
+    one elementwise pass computes and is timed with.  Each is card time
+    with the host's work hidden (:func:`queued_time_ms`); the kernel is
+    also timed as :func:`cuda_time_ms` reads it (``repeated_ms``), where
+    a call's host work longer than its kernel shows."""
     n = keys.numel()
-    ms = cuda_time_ms(lambda: ops.bucket_count(keys, valid, nb))
-    plain_ms = cuda_time_ms(lambda: ref.bucket_count_ref(keys, valid, nb))
+    ms = queued_time_ms(lambda: ops.bucket_count(keys, valid, nb))
+    repeated_ms = cuda_time_ms(lambda: ops.bucket_count(keys, valid, nb))
+    plain_ms = queued_time_ms(lambda: ref.bucket_count_ref(keys, valid, nb))
 
     def library():
         dest = torch.where(valid & (keys != PROBE_PAD),
                            (keys.long() & 0xFFFFFFFF) % nb, nb)
         return torch.bincount(dest, minlength=nb + 1)[:nb]
 
-    library_ms = cuda_time_ms(library)
+    library_ms = queued_time_ms(library)
     # bytes: each key (4 B) and its validity byte read once, the
     # histogram written once; operations: two tests, a modulo and an add
     # per row
     bytes_ms = (5 * n + 4 * nb) / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * n / SCALAR_OPS_PER_S * 1e3
-    return {"n": n, "n_buckets": nb, "ms": ms, "plain_ms": plain_ms,
+    return {"n": n, "n_buckets": nb, "ms": ms, "repeated_ms": repeated_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def cold_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Card time of one call of ``fn`` with L2 cold: before each call the
+    card reads 256 MB (five times the 50 MB L2; a read, so that no dirty
+    line is left to write back during the call), and a pair of CUDA
+    events encloses the call alone.  The read takes longer than the
+    call's host work, so the host has queued the call when the card
+    reaches it: the events read card time."""
+    flush = torch.ones(1 << 26, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def queued_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Card time a call of ``fn`` repeated with its inputs warm in L2 and
+    its host work hidden: the card first spins (``torch.cuda._sleep``)
+    while the host queues every call, so the events read card time even
+    where a call's host work is longer than its kernel (which
+    :func:`cuda_time_ms` would read instead)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bucket_host_split_us(ops, ref, n: int = 1 << 13, nb: int = 1,
+                         reps: int = 2000) -> dict:
+    """Where one small call's time goes, by the host clock with the card
+    idle (microseconds a call): the wrapper's checks
+    (``ops._bucket_on_card``), the output's allocation (``new_empty``;
+    the zeroing is a ``cudaMemsetAsync`` inside the C entry point), the
+    launch arithmetic and stream lookup (``_bucket_plan``, the raw
+    current stream, the current device), the ctypes call (its memset and
+    launch), and the whole call; each warm (``reps`` calls in a row) and
+    with the host's caches cold (``reps / 20`` calls, each after the host
+    reads 64 MB, as a call finds them on the main path, where other work
+    runs between two calls).  Then by CUDA events, one call with the
+    card idle before it (what phase 6a's path sum reads for a call) and
+    the card time a call, host hidden."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    keys = torch.randint(-2**31, PROBE_PAD, (n,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    valid = torch.rand(n, generator=gen, device="cuda") < 0.75
+    dev = keys.get_device()
+    out = keys.new_empty(nb)
+    plan = ops._bucket_plan(n, nb, ops._sm_count(dev), keys.data_ptr(),
+                            valid.data_ptr())
+    args = (keys.data_ptr(), valid.data_ptr(), n, nb,
+            ops.BUCKET_PATH_IDS[plan.path], plan.lo, plan.hi, plan.blocks,
+            ops.BUCKET_THREADS, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = ops._bucket_count_fn()
+
+    # the whole call again, each after the host reads 64 MB (more than
+    # its caches hold), as a call finds them on the main path
+    pollute = np.ones(1 << 23)
+
+    def host_us(f, cold: bool):
+        f()
+        torch.cuda.synchronize()
+        if cold:
+            total = 0.0
+            for _ in range(reps // 20):
+                pollute.sum()
+                t = time.perf_counter()
+                f()
+                total += time.perf_counter() - t
+            us = total * 1e6 / (reps // 20)
+        else:
+            t = time.perf_counter()
+            for _ in range(reps):
+                f()
+            us = (time.perf_counter() - t) * 1e6 / reps
+        torch.cuda.synchronize()
+        return us
+
+    def plan_and_stream():
+        ops._bucket_plan(n, nb, ops._sm_count(dev), keys.data_ptr(),
+                         valid.data_ptr())
+        torch._C._cuda_getCurrentRawStream(dev)
+        return dev == torch._C._cuda_getDevice()
+
+    pieces = {"checks": lambda: ops._bucket_on_card(keys, valid, nb),
+              "allocation": lambda: keys.new_empty(nb),
+              "plan_and_stream": plan_and_stream,
+              "ctypes_launch": lambda: fn(*args),
+              "whole_call": lambda: ops.bucket_count(keys, valid, nb)}
+    split = {"n": n, "n_buckets": nb, "path": plan.path}
+    for state in ("warm", "cold_caches"):
+        us = {k: host_us(f, state != "warm") for k, f in pieces.items()}
+        us["rest"] = us["whole_call"] - sum(
+            v for k, v in us.items() if k != "whole_call")
+        split[f"{state}_us"] = us
+    idle = []
+    for _ in range(200):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()     # created here, outside the timed span
+        end.record()
+        torch.cuda.synchronize()
+        start.record()
+        ops.bucket_count(keys, valid, nb)
+        end.record()
+        idle.append((start, end))
+    torch.cuda.synchronize()
+    split["event_idle_us"] = 1e3 * sum(a.elapsed_time(b)
+                                       for a, b in idle) / len(idle)
+    split["card_us"] = 1e3 * queued_time_ms(
+        lambda: ops.bucket_count(keys, valid, nb), reps=200)
+    check_bucket(ops, ref, keys, valid, nb, "the split's input")
+    return split
+
+
+#: bucket counts on both sides of each cut of the bucket-count kernel's
+#: paths (registers up to ops.BUCKET_REG_MAX = 8, the shared histogram
+#: up to 12,288, global atomics above)
+BUCKET_CUT_CASES = (1, 2, 3, 4, 8, 9, 256, 12288, 12289, 20000)
+#: key counts around multiples of the kernel's 16-key step and of 4,096
+BUCKET_SIZES = (15, 16, 17, 31, 4095, 4096, 4097, 3 * 4096 + 21, 100003)
+
+
+def bucket_path(ops, keys, valid, nb: int) -> str:
+    return ops._bucket_plan(keys.numel(), nb, ops._sm_count(0),
+                            keys.data_ptr(), valid.data_ptr()).path
+
+
+def bucket_edge_cases(ops, ref, gen: torch.Generator) -> None:
+    """Every path and both sides of each cut, sizes around 16 and 4,096,
+    key and validity views at offsets of 0-3 keys (so the body starts at
+    another key, or the call takes the scalar loop), with the register
+    cut as committed and at 0; each exact, each on the path its plan
+    names."""
+    n_max = max(BUCKET_SIZES) + 3
+    keys = torch.randint(-2**31, PROBE_PAD, (n_max,), generator=gen,
+                         dtype=torch.int32)
+    keys[::5] = -1
+    keys[1::7] = -3
+    keys[2::11] = PROBE_PAD
+    keys[3::3] = torch.randint(0, 50, (len(keys[3::3]),), generator=gen,
+                               dtype=torch.int32)
+    kc = keys.cuda()
+    vc = (torch.rand(n_max, generator=gen) < 0.8).cuda()
+    saved = ops.BUCKET_REG_MAX
+    try:
+        for reg_max in (saved, 0):
+            ops.BUCKET_REG_MAX = reg_max
+            for nb in BUCKET_CUT_CASES:
+                want_path = ("registers" if nb <= reg_max else "shared"
+                             if nb <= ops.BUCKET_SMEM_MAX else "global")
+                calls, scalar = 0, 0
+                for n in BUCKET_SIZES:
+                    for ko in range(4):
+                        for vo in range(4):
+                            k, v = kc[ko:ko + n], vc[vo:vo + n]
+                            plan = ops._bucket_plan(
+                                n, nb, ops._sm_count(0), k.data_ptr(),
+                                v.data_ptr())
+                            if plan.path != want_path:
+                                raise AssertionError(
+                                    f"bucket_count plan: {nb} buckets at "
+                                    f"register cut {reg_max} took "
+                                    f"{plan.path}, not {want_path}")
+                            before = ops.launches["bucket_count"]
+                            check_bucket(ops, ref, k, v, nb,
+                                         f"{n} keys at offsets {ko}/{vo}, "
+                                         f"{nb} buckets, {plan.path}")
+                            if ops.launches["bucket_count"] != before + 1:
+                                raise AssertionError("bucket_count: a call "
+                                                     "did not count one "
+                                                     "launch")
+                            calls += 1
+                            scalar += plan.hi == plan.lo
+                log(f"  bucket_count == plain, register cut {reg_max}, "
+                    f"{nb} buckets ({want_path}): {calls} calls of "
+                    f"{list(BUCKET_SIZES)} keys at key/validity offsets "
+                    f"0-3 ({scalar} with no 16-byte body)")
+    finally:
+        ops.BUCKET_REG_MAX = saved
+
+
+def bucket_registers_vs_shared_ms(ops, ref, keys, valid, nb: int) -> dict:
+    """The register path against the shared histogram (register cut 0)
+    on one input, in turns (registers, shared, shared, registers), each
+    checked against the plain version."""
+    saved = ops.BUCKET_REG_MAX
+    out = {"registers": [], "shared": []}
+    try:
+        for which in ("registers", "shared", "shared", "registers"):
+            ops.BUCKET_REG_MAX = saved if which == "registers" else 0
+            if bucket_path(ops, keys, valid, nb) != which:
+                raise AssertionError(f"bucket_count: {nb} buckets did not "
+                                     f"take the {which} path")
+            check_bucket(ops, ref, keys, valid, nb, f"{which} path")
+            out[which].append(cuda_time_ms(
+                lambda: ops.bucket_count(keys, valid, nb)))
+    finally:
+        ops.BUCKET_REG_MAX = saved
+    return out
 
 
 def phase_bucket_kernel(ops, ref) -> None:
@@ -565,6 +797,7 @@ def phase_bucket_kernel(ops, ref) -> None:
     for what, k, v, nb in bucket_cases(gen):
         check_bucket(ops, ref, k.cuda(), v.cuda(), nb, what)
         log(f"  bucket_count == plain: {what} ({k.numel()} keys)")
+    bucket_edge_cases(ops, ref, gen)
     n = 1 << 28
     dev_gen = torch.Generator(device="cuda").manual_seed(n)
     keys = torch.randint(-2**31, PROBE_PAD, (n,), generator=dev_gen,
@@ -574,10 +807,15 @@ def phase_bucket_kernel(ops, ref) -> None:
         check_bucket(ops, ref, keys, valid, nb, f"2^28 keys, {nb} buckets")
         bn = bucket_numbers(ops, ref, keys, valid, nb)
         log(f"  bucket_count 2^28 keys, {nb} buckets: equal; kernel "
-            f"{bn['ms']:.4f} ms, plain {bn['plain_ms']:.4f} ms, "
+            f"{bn['ms']:.4f} ms (repeated as cuda_time_ms reads it "
+            f"{bn['repeated_ms']:.4f}), plain {bn['plain_ms']:.4f} ms, "
             f"torch.bincount {bn['library_ms']:.4f} ms, bound "
             f"{bn['bound_ms']:.4f} ms ({bn['bound_by']}, "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        turns = bucket_registers_vs_shared_ms(ops, ref, keys, valid, nb)
+        log(f"  bucket_count 2^28 keys, {nb} buckets, register path "
+            f"against the shared histogram (register cut 0), in turns "
+            f"(ms): {json.dumps(turns)}")
     del keys, valid
     torch.cuda.empty_cache()
 
@@ -1188,6 +1426,7 @@ class BucketRecorder:
         self.best = None
         self.shapes = {}
         self.events = []
+        self.gc_ms, self.gc_runs, self._gc_t = 0.0, 0, 0.0
 
     def __call__(self, keys, valid, n_buckets):
         key = (keys.numel(), n_buckets)
@@ -1196,25 +1435,53 @@ class BucketRecorder:
             self.best = (keys.clone(), valid.clone(), n_buckets)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        idle = torch.cuda.current_stream().query()
+        # a CUDA event is created at its first record: record both once
+        # here, so that neither creation falls inside the timed span
         start.record()
-        out = self.inner(keys, valid, n_buckets)
         end.record()
-        self.events.append((keys.numel(), n_buckets, start, end))
+        gc0 = self.gc_ms
+        t0 = time.perf_counter()
+        start.record()
+        t1 = time.perf_counter()
+        out = self.inner(keys, valid, n_buckets)
+        t2 = time.perf_counter()
+        end.record()
+        t3 = time.perf_counter()
+        self.events.append((keys.numel(), n_buckets, start, end, idle,
+                            (t3 - t0) * 1e3, (t2 - t1) * 1e3,
+                            self.gc_ms - gc0))
         return out
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t = time.perf_counter()
+        else:
+            self.gc_ms += (time.perf_counter() - self._gc_t) * 1e3
+            self.gc_runs += 1
 
     def path_times(self) -> dict:
         """The bucket count's whole cost over the run: the sum of every
         call's event time and of its bound, and both by key count (2^k <=
         n < 2^k+1), so that launches x (time - bound) can be ranked
         against the other kernels.  The events enclose the whole wrapper
-        (its output allocation and launch too)."""
+        (its output allocation and launch too), so where the card is idle
+        when a call starts they read the call's host work as well; the
+        host clock around the same span, and the event time of the calls
+        that found the card idle, say how much."""
         torch.cuda.synchronize()
         total, bound, buckets = 0.0, 0.0, {}
-        for n, nb, start, end in self.events:
+        host, idle_calls, idle_ms, wrapper, gc_in = 0.0, 0, 0.0, 0.0, 0.0
+        for n, nb, start, end, idle, host_ms, wrap_ms, gc_ms in self.events:
+            wrapper += wrap_ms
+            gc_in += gc_ms
             ms = start.elapsed_time(end)
             bms = (5 * n + 4 * nb) / HBM_BYTES_PER_S * 1e3
             total += ms
             bound += bms
+            host += host_ms
+            idle_calls += idle
+            idle_ms += ms if idle else 0.0
             k = max(n, 1).bit_length() - 1
             bk = buckets.setdefault(k, {"launches": 0, "ms": 0.0,
                                         "bound_ms": 0.0, "max_call_ms": 0.0})
@@ -1224,13 +1491,19 @@ class BucketRecorder:
             bk["max_call_ms"] = max(bk["max_call_ms"], ms)
         return {"calls": len(self.events), "total_ms": total,
                 "bound_ms": bound, "gap_ms": total - bound,
+                "host_ms": host, "wrapper_host_ms": wrapper,
+                "gc_in_calls_ms": gc_in, "gc_runs": self.gc_runs,
+                "gc_ms": self.gc_ms, "calls_on_idle_card": idle_calls,
+                "idle_card_ms": idle_ms,
                 "by_log2_n": {f"2^{k}": buckets[k] for k in sorted(buckets)}}
 
     def __enter__(self):
         self.mod.ops = _OpsShim(self.mod.ops, bucket_count=self)
+        gc.callbacks.append(self._gc)
         return self
 
     def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
         self.mod.ops = self.mod.ops.base
 
 
@@ -1336,21 +1609,43 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
         log(f"  bucket_count over the distributed path (CUDA events around "
             f"each call): {bpath['calls']} calls, {bpath['total_ms']:.4f} ms "
             f"in all against a {bpath['bound_ms']:.4f} ms bound (gap "
-            f"{bpath['gap_ms']:.4f} ms); by n: "
+            f"{bpath['gap_ms']:.4f} ms); host clock over the same spans "
+            f"{bpath['host_ms']:.4f} ms (the wrapper alone "
+            f"{bpath['wrapper_host_ms']:.4f} ms, garbage collection in "
+            f"them {bpath['gc_in_calls_ms']:.4f} ms; over the whole run "
+            f"{bpath['gc_runs']} collections, {bpath['gc_ms']:.4f} ms); "
+            f"{bpath['calls_on_idle_card']} "
+            f"calls found the card idle, {bpath['idle_card_ms']:.4f} ms "
+            f"of their event time; by n: "
             f"{json.dumps(bpath['by_log2_n'])}")
         err = check_bucket(ops, ref, keys, valid, nb, "main-path input")
         bn = bucket_numbers(ops, ref, keys, valid, nb)
+        largest = {"n": bn["n"], "n_buckets": nb,
+                   "path": bucket_path(ops, keys, valid, nb),
+                   "repeated_ms": bn["repeated_ms"],
+                   "queued_ms": bn["ms"], "l2_flushed_ms": cold_time_ms(
+                       lambda: ops.bucket_count(keys, valid, nb)),
+                   "bound_ms": bn["bound_ms"]}
         log(f"  bucket_count on the main path's largest input ({bn['n']} "
-            f"keys, {nb} bucket): equal; kernel {bn['ms']:.4f} ms, plain "
-            f"{bn['plain_ms']:.4f} ms, torch.bincount "
-            f"{bn['library_ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms "
-            f"({bn['bound_by']})")
+            f"keys, {nb} bucket, {largest['path']} path): equal; kernel "
+            f"{bn['ms']:.4f} ms repeated with its host work hidden "
+            f"(inputs in L2), {bn['repeated_ms']:.4f} ms repeated as "
+            f"cuda_time_ms reads it, {largest['l2_flushed_ms']:.4f} ms "
+            f"with L2 flushed before each call; plain "
+            f"{bn['plain_ms']:.4f} ms, "
+            f"torch.bincount {bn['library_ms']:.4f} ms, bound "
+            f"{bn['bound_ms']:.4f} ms ({bn['bound_by']})")
+        split = bucket_host_split_us(ops, ref)
+        log(f"  bucket_count host split of a small call (card idle, "
+            f"microseconds a call): {json.dumps(split)}")
         del deng, brec, keys, valid
         numbers = {"backend": "nccl", "ranks": 1, "scale": args.scale,
                    "build_s": build_s, "exchanges": ex["all_to_all"],
                    "buffer_bytes": ex["buffer_bytes"],
                    "bucket_count_launches": launches["bucket_count"],
                    "bucket_count_path": bpath,
+                   "bucket_count_largest": largest,
+                   "bucket_count_host_split": split,
                    "p50_ms": {n: p(stats[n]["lat"], 50) for n in order}}
         return dict(bn, launches=launches["bucket_count"],
                     max_abs_err=err), numbers

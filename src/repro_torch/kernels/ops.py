@@ -45,10 +45,23 @@ SM_THREADS = 2048
 SM_SMEM_BYTES = 233472
 BLOCK_SMEM_RESERVED = 1024
 
-#: threads of one block of the bucket-count kernel
+#: threads of one block of the bucket-count kernel, and its blocks per SM
+#: (the persistent grid asks for 2,048 threads an SM; at 35-47 registers a
+#: thread, 5-6 blocks an SM are resident at once and the rest follow)
 BUCKET_THREADS = 256
-#: blocks of the bucket-count kernel per SM (each flushes one histogram)
 BUCKET_BLOCKS_PER_SM = 8
+#: keys a bucket-count thread takes a step: four 16-byte key vectors and
+#: one 16-byte vector of validity bytes (STEP_KEYS in bucketcount.cu)
+BUCKET_STEP_KEYS = 16
+#: bucket counts up to which every thread counts in registers; at most 8,
+#: the counts bucketcount.cu instantiates (REG_BUCKETS).  0 sends every
+#: call to the shared histogram.
+BUCKET_REG_MAX = 8
+#: bucket counts the shared histogram holds (SMEM_BUCKETS: 48 KB); above
+#: it the kernel counts with global atomics
+BUCKET_SMEM_MAX = 12288
+#: the bucket-count kernel's paths, numbered as bucketcount.cu's PATH_*
+BUCKET_PATH_IDS = {"registers": 0, "shared": 1, "global": 2}
 
 #: kernel name -> launches since the last reset
 launches: Dict[str, int] = {"join_probe": 0, "semijoin_membership": 0,
@@ -119,15 +132,51 @@ def _semijoin_fns():
     return fb, fm
 
 
+@functools.lru_cache(maxsize=None)
 def _bucket_count_fn():
-    lib = build.load("bucket_count")
-    fn = lib.bucket_count_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = build.load("bucket_count").bucket_count_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+class BucketPlan(NamedTuple):
+    """The bucket-count kernel's launch: its path, its blocks, and the
+    body ``[lo, hi)`` it reads in 16-byte vectors (the head ``[0, lo)``
+    and the tail ``[hi, n)`` go one key a thread)."""
+
+    path: str    # "registers", "shared" or "global"
+    blocks: int
+    lo: int
+    hi: int
+
+
+def _bucket_plan(n: int, n_buckets: int, sms: int, key_ptr: int,
+                 valid_ptr: int) -> BucketPlan:
+    """The bucket-count kernel's launch for ``n`` keys at address
+    ``key_ptr`` (int32) and their validity bytes at ``valid_ptr``.
+
+    The path: registers up to ``BUCKET_REG_MAX`` buckets, the shared
+    histogram up to ``BUCKET_SMEM_MAX``, global atomics above.  The body
+    starts at the first key where both addresses are 16-byte aligned
+    and holds every whole step of ``BUCKET_STEP_KEYS`` keys from there;
+    where no key aligns both (their offsets differ mod 4 keys) or fewer
+    than a step remain, it is empty (``lo = hi = 0``).  ``blocks``: one
+    thread a step or a head or tail key, at most ``sms *
+    BUCKET_BLOCKS_PER_SM`` blocks (the persistent grid), at least one."""
+    path = ("registers" if n_buckets <= BUCKET_REG_MAX else
+            "shared" if n_buckets <= BUCKET_SMEM_MAX else "global")
+    lo = -valid_ptr % 16
+    if (key_ptr + 4 * lo) % 16 or n - lo < BUCKET_STEP_KEYS:
+        lo = hi = 0
+    else:
+        hi = lo + (n - lo) // BUCKET_STEP_KEYS * BUCKET_STEP_KEYS
+    items = max((hi - lo) // BUCKET_STEP_KEYS, n - (hi - lo))
+    blocks = min(-(-items // BUCKET_THREADS), sms * BUCKET_BLOCKS_PER_SM)
+    return BucketPlan(path, max(blocks, 1), lo, hi)
 
 
 def _check_int32_column(fn: str, name: str, t: torch.Tensor) -> None:
@@ -406,6 +455,36 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
     return lo, cnt
 
 
+def _bucket_on_card(keys: torch.Tensor, valid: torch.Tensor,
+                    n_buckets: int) -> bool:
+    """:func:`bucket_count`'s checks: True for tensors on one CUDA device
+    that the kernel takes, False for tensors on the CPU; raises on
+    anything else."""
+    if n_buckets < 1:
+        raise ValueError(f"bucket_count: n_buckets must be >= 1, got "
+                         f"{n_buckets}")
+    if keys.shape != valid.shape:
+        raise ValueError(f"bucket_count: keys {tuple(keys.shape)} and valid "
+                         f"{tuple(valid.shape)} differ in shape")
+    if keys.is_cuda and valid.is_cuda and \
+            keys.get_device() == valid.get_device():
+        if keys.dtype != torch.int32 or keys.dim() != 1 or \
+                not keys.is_contiguous():
+            _check_int32_column("bucket_count", "keys", keys)
+        if valid.dtype != torch.bool or not valid.is_contiguous():
+            raise ValueError(f"bucket_count: valid must be a contiguous "
+                             f"bool tensor, got {valid.dtype}")
+        if keys.shape[0] >= 2**31:
+            raise ValueError(f"bucket_count: {keys.shape[0]} keys would "
+                             "overflow an int32 count")
+        return True
+    if keys.device.type == "cpu" and valid.device.type == "cpu":
+        return False
+    raise ValueError(f"bucket_count: keys on {keys.device} and valid on "
+                     f"{valid.device}; both must be on one CUDA device "
+                     "(or both on the CPU)")
+
+
 def bucket_count(keys: torch.Tensor, valid: torch.Tensor,
                  n_buckets: int) -> torch.Tensor:
     """int32 histogram of ``uint32(key) mod n_buckets`` over the rows that
@@ -415,39 +494,33 @@ def bucket_count(keys: torch.Tensor, valid: torch.Tensor,
 
     On CUDA this is the hand-written kernel ``csrc/bucketcount.cu``,
     which replaces the TPU kernel
-    ``repro/kernels/bucketcount.py::bucket_count_kernel``.
+    ``repro/kernels/bucketcount.py::bucket_count_kernel``, on the path
+    and grid of :func:`_bucket_plan`.  The call allocates its output and
+    nothing else, and makes no host sync: the kernel's entry point zeroes
+    the output in stream order.
     """
     n_buckets = int(n_buckets)
-    if n_buckets < 1:
-        raise ValueError(f"bucket_count: n_buckets must be >= 1, got "
-                         f"{n_buckets}")
-    if keys.shape != valid.shape:
-        raise ValueError(f"bucket_count: keys {tuple(keys.shape)} and valid "
-                         f"{tuple(valid.shape)} differ in shape")
-    if keys.device.type == "cpu" and valid.device.type == "cpu":
+    if not _bucket_on_card(keys, valid, n_buckets):
         return ref.bucket_count_ref(keys, valid, n_buckets)
-    if keys.device.type != "cuda" or keys.device != valid.device:
-        raise ValueError(f"bucket_count: keys on {keys.device} and valid on "
-                         f"{valid.device}; both must be on one CUDA device "
-                         "(or both on the CPU)")
-    _check_int32_column("bucket_count", "keys", keys)
-    if valid.dtype != torch.bool or not valid.is_contiguous():
-        raise ValueError(f"bucket_count: valid must be a contiguous bool "
-                         f"tensor, got {valid.dtype}")
-    n = keys.numel()
-    if n >= 2**31:
-        raise ValueError(f"bucket_count: {n} keys would overflow an int32 "
-                         "count")
-    out = torch.zeros(n_buckets, dtype=torch.int32, device=keys.device)
+    out = keys.new_empty(n_buckets)
+    n = keys.shape[0]
     if n == 0:
-        return out
-    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    n_blocks = min(-(-n // BUCKET_THREADS), sms * BUCKET_BLOCKS_PER_SM)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    with torch.cuda.device(keys.device):
-        status = _bucket_count_fn()(keys.data_ptr(), valid.data_ptr(), n,
-                                    n_buckets, n_blocks, BUCKET_THREADS,
-                                    out.data_ptr(), stream)
+        return out.zero_()
+    dev = keys.get_device()
+    key_ptr, valid_ptr = keys.data_ptr(), valid.data_ptr()
+    path, blocks, lo, hi = _bucket_plan(n, n_buckets, _sm_count(dev),
+                                        key_ptr, valid_ptr)
+    # the raw handle of the current stream and the current device, each
+    # in one call into torch's C module, without the Python Stream object
+    # that torch.cuda.current_stream builds
+    args = (key_ptr, valid_ptr, n, n_buckets, BUCKET_PATH_IDS[path], lo, hi,
+            blocks, BUCKET_THREADS, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch._C._cuda_getDevice():
+        status = _bucket_count_fn()(*args)
+    else:
+        with torch.cuda.device(dev):
+            status = _bucket_count_fn()(*args)
     if status != 0:
         raise RuntimeError(f"bucket_count kernel launch failed: CUDA error "
                            f"{status}")

@@ -12,8 +12,9 @@ reference's uint32 modulo, which is how the shuffle routes rows.  Pads
 sit in invalid rows, where the executor puts them: a *valid* row whose
 key is the pad counts in the reference path but not in the Pallas
 kernel, and counts nowhere in the port (a valid row never carries the
-pad).  ``test_cuda_kernel_matches_plain`` holds the CUDA kernel against
-the plain version on the card (marked ``cuda``; it skips without one).
+pad).  The CUDA kernel's tests, and its launch plan's, are in
+``tests/test_torch_bucketcount_kernel.py``, which imports no JAX and so
+also runs on the card.
 """
 
 import jax.numpy as jnp
@@ -111,26 +112,3 @@ def test_wrapper_contract():
     np.testing.assert_array_equal(ops.bucket_count(keys, valid, 4).numpy(),
                                   [3, 3, 2, 2])
     assert ops.launches == before        # the plain version is no launch
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """The kernel against the plain version on the card, exactly: every
-    case above, the global-atomics path past the shared-memory cut, and
-    2^24 keys (``-m cuda`` on the card)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    cases = [(keys_and_valid(s, n), nb) for s, n in enumerate([0, 1, 33,
-                                                               4099])
-             for nb in (1, 2, 3, 6, 8, 256, 20000)]
-    cases.append(((np.array([-1, -1, -3, 5], np.int32),
-                   np.ones(4, bool)), 3))
-    big = np.random.default_rng(7).integers(-2**31, PAD, 1 << 24)
-    cases.append(((big.astype(np.int32), big % 3 > 0), 2))
-    for (keys, valid), nb in cases:
-        k, v = torch.from_numpy(keys), torch.from_numpy(valid)
-        launches = ops.launches["bucket_count"]
-        got = ops.bucket_count(k.cuda(), v.cuda(), nb)
-        torch.cuda.synchronize()
-        assert ops.launches["bucket_count"] == launches + (len(keys) > 0)
-        assert torch.equal(got.cpu(), ref.bucket_count_ref(k, v, nb))
