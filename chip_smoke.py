@@ -63,10 +63,32 @@ Phases (any failure exits non-zero and prints no result line):
    5 saved, builds ExtVP distributed (byte-identical to the numpy build)
    and serves all 20 templates, single and batched, held against the
    single-device card engine; a rank's failure fails the smoke.
+7. the serving surface, with the kernels' launch counts reset just
+   before each part and read just after (all three must run).  7a, at
+   ``--scale`` after 6a, on phase 3's dataset: a ``SparqlServer`` takes
+   32 interleaved instances of every template (3 of C1 and C2, whose
+   results do not fit 32 times beside the catalog: ``SERVE_CUT``) and
+   one flush, each ticket held row for row against ``Engine.query``,
+   and prints ``summary()``; the suite served at trace rates 0, 1.0
+   and 0.1 in turns on one engine (``TRACE_NO_CARDINALITY`` with the
+   cardinality report off, then one request each with it on, timed),
+   traced results equal to untraced ones, the Chrome dump read by
+   ``tools/trace_inspect.py``, a ``device.launch`` span on every traced
+   request and cardinalities on every flat BGP's; the estimate planner
+   against greedy and the vp and tt layouts against extvp, results equal
+   as multisets and p50s in turns (a template that runs out of card
+   memory is left out and listed); the server on the distributed
+   backend at one NCCL rank, where no bucket drains by the clock.  7b,
+   at ``--compare-scale`` after phase 5: every template under every
+   layout, a server booted from phase 5's store path, and ``python -m
+   repro_torch.launch.serve`` on that store as a subprocess (exit 0,
+   latency and stage histograms in its Prometheus file, its trace dump
+   read by ``tools/trace_inspect.py``).
 
-It prints one JSON line with phase 6's numbers, one with the join
-probe's numbers over the main path, one with the kernels' numbers, then
-the card's name and power limit, then
+Each phase's header gives the seconds since the start.  It prints one
+JSON line with phase 6's numbers, one with the join probe's numbers
+over the main path, one with phase 7's numbers, one with the kernels'
+numbers, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1757,6 +1779,479 @@ def rank_main(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving surface
+# ---------------------------------------------------------------------------
+
+#: instances a template sends through the server: each bucket a real
+#: batch of up to 32
+SERVE_INSTANCES = 32
+#: templates served at SERVE_CUT_INSTANCES instances only: a batch holds
+#: every binding's result on the card until the batch ends, and one
+#: result of these is 2.9-4.1 GB (10^8 rows), so 32 do not fit beside
+#: the catalog
+SERVE_CUT = ("C1", "C2")
+SERVE_CUT_INSTANCES = 3
+#: instances a template sends through the distributed server
+SERVE_DIST_INSTANCES = 8
+#: the trace turns serve these with ``trace_cardinality`` off (their
+#: cardinality reports join 10^8 rows on the host), then time one
+#: traced request each with it on
+TRACE_NO_CARDINALITY = ("C1", "C2")
+TRACE_RATES = (0.0, 1.0, 0.1)
+LAYOUTS_COMPARED = ("vp", "tt")
+
+
+def same_rows(a, b) -> bool:
+    return a.cols == b.cols and np.array_equal(a.data, b.data)
+
+
+def same_bag(a, b) -> bool:
+    """Equal as multisets over the same variables, whatever the column
+    order (plans that join in another order bind the columns in
+    another order)."""
+    if sorted(a.cols) != sorted(b.cols) or a.data.shape != b.data.shape:
+        return False
+    perm = [b.cols.index(c) for c in a.cols]
+    return bool(torch.equal(canon(a.data), canon(b.data[:, perm])))
+
+
+def interleave(queries) -> list:
+    """(template, query) pairs, one instance of every template in turn."""
+    n = max(len(v) for v in queries.values())
+    return [(name, insts[i]) for i in range(n)
+            for name, insts in queries.items() if i < len(insts)]
+
+
+def server_check(srv, eng, queries, exact: bool) -> dict:
+    """Every query of ``queries`` submitted to ``srv``, the templates
+    interleaved, then one flush; every ticket's rows held against
+    ``eng.query`` of the same text (row for row when ``exact``, else
+    as multisets).  Results are dropped as soon as they are compared."""
+    order = interleave(queries)
+    t = time.perf_counter()
+    tickets = [srv.submit(q) for _, q in order]
+    pending = srv.batcher.pending()
+    flushed = srv.flush()
+    wall_s = time.perf_counter() - t
+    same = same_rows if exact else same_multiset
+    for i, (name, q) in enumerate(order):
+        got, want = tickets[i].result(), eng.query(q)
+        if not same(got, want):
+            raise AssertionError(f"{name}: the server's result != "
+                                 "Engine.query's")
+        tickets[i] = None
+        del got, want
+    return {"requests": len(order), "pending_after_submits": pending,
+            "served_by_flush": flushed, "wall_s": wall_s}
+
+
+def summary_line(m: dict) -> str:
+    return (f"served {m['served']}, p50 {m['p50_ms']:.3f} ms, p90 "
+            f"{m['p90_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, queue p50 "
+            f"{m['queue_p50_ms']:.3f} ms, queue p99 "
+            f"{m['queue_p99_ms']:.3f} ms, batches {m['batches']}, batched "
+            f"requests {m['batched_requests']}, occupancy "
+            f"{m['batch_occupancy']:.3f}")
+
+
+def trace_turns(eng, queries, here: str) -> dict:
+    """The suite through ``eng.query`` at each rate of ``TRACE_RATES``
+    in turn on the one engine, two passes a rate (the first warms what
+    the rate adds: a traced binding's first sight runs its cardinality
+    joins on the host); the p50 of the second.  ``TRACE_NO_CARDINALITY``
+    runs its distinct texts with the cardinality report off, its p50s
+    apart; after the turns one traced request of each with the report
+    on gives what the report costs.  Traced results must equal untraced
+    ones row for row; then the Chrome dump, ``tools/trace_inspect.py``
+    on it, and the span checks."""
+    cfg = eng.config
+    suite = [(n, q) for n, insts in queries.items()
+             if n not in TRACE_NO_CARDINALITY for q in insts]
+    heavy = [(n, q) for n in TRACE_NO_CARDINALITY
+             for q in dict.fromkeys(queries[n])]
+    base, p50, heavy_p50 = {}, {}, {}
+
+    def turn(items, rate) -> dict:
+        for _ in range(2):
+            lat = {}
+            for name, q in items:
+                t = time.perf_counter()
+                r = eng.query(q)
+                lat.setdefault(name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                if q not in base:
+                    base[q] = r
+                elif not same_rows(r, base[q]):
+                    raise AssertionError(f"{name}: traced result at rate "
+                                         f"{rate} != the untraced one")
+                del r
+        return lat
+
+    with_cardinality = cfg.trace_cardinality
+    for rate in TRACE_RATES:
+        cfg.trace_sample_rate = rate
+        lat = turn(suite, rate)
+        p50[str(rate)] = p([x for v in lat.values() for x in v], 50)
+        cfg.trace_cardinality = False
+        try:
+            lat = turn(heavy, rate)
+        finally:
+            cfg.trace_cardinality = with_cardinality
+        heavy_p50[str(rate)] = {n: p(v, 50) for n, v in lat.items()}
+    del base
+    gc.collect()
+    cfg.trace_sample_rate = 1.0
+    cfg.trace_cardinality = True
+    report_s = {}
+    for name, q in dict(heavy).items():
+        t = time.perf_counter()
+        eng.query(q)
+        report_s[name] = time.perf_counter() - t
+    cfg.trace_sample_rate = 0.0
+    cfg.trace_cardinality = with_cardinality
+    tracer = eng.tracer
+    path = os.path.join(here, "build", "smoke_trace.json")
+    with open(path, "w") as f:
+        json.dump(tracer.chrome_trace(), f)
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "trace_inspect.py"),
+         path, "--stages"], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"trace_inspect failed: {out.stderr[-2000:]}")
+    traces = tracer.recorder.traces()
+    flat = {q[:200] for _, q in suite if "OPTIONAL" not in q}
+    heavy_texts = {q[:200] for _, q in heavy}
+    n_launch = n_card = n_short = n_heavy_card = 0
+    for ctx in traces:
+        names = {s.name for s in ctx.spans}
+        events = {e["name"] for s in ctx.spans for e in s.events}
+        if "short_circuit" in events:
+            n_short += 1
+            continue
+        if "device.launch" not in names:
+            raise AssertionError(f"trace {ctx.trace_id} has no "
+                                 "device.launch span")
+        n_launch += 1
+        qtext = ctx.root.attrs.get("qtext")
+        carded = all("cardinalities" in s.attrs for s in ctx.spans
+                     if s.name == "device.launch")
+        if qtext in flat:
+            if not carded:
+                raise AssertionError(f"trace {ctx.trace_id} of a flat BGP "
+                                     "carries no cardinalities")
+            n_card += 1
+        elif qtext in heavy_texts and carded:
+            n_heavy_card += 1
+    if n_launch == 0 or n_card == 0 or \
+            n_heavy_card < len(TRACE_NO_CARDINALITY):
+        raise AssertionError("no traced launch, or no cardinalities")
+    return {"p50_ms": p50, "requests_per_pass": len(suite),
+            "no_cardinality_p50_ms": heavy_p50,
+            "with_cardinality_first_s": report_s,
+            "traces": len(traces), "with_launch": n_launch,
+            "with_cardinalities": n_card + n_heavy_card,
+            "short_circuits": n_short,
+            "started": tracer.started, "sampled_out": tracer.sampled_out,
+            "inspect_stages": out.stdout.strip().splitlines()}
+
+
+def timed_turns(engines: dict, queries, reps: int, check) -> dict:
+    """Each template through every engine of ``engines`` (name ->
+    engine): one cold pass over its distinct instances (a template
+    without constants repeats one text) whose results ``check(name,
+    query, results)`` holds against each other, then ``reps`` warm
+    passes in turns (engine after engine for each instance; one pass
+    over the distinct instances for ``SERVE_CUT``, whose queries take
+    seconds).  Per-template p50s and peak card memory (all of it; what
+    was allocated when the turns began is ``resident_gib``).  A template that
+    runs out of card memory on an engine is left out of every engine's
+    numbers and reported with its peak."""
+    out, left_out = {}, {}
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    for name, insts in queries.items():
+        distinct = list(dict.fromkeys(insts))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for q in distinct:
+                res = {k: e.query(q) for k, e in engines.items()}
+                check(name, q, res)
+                del res
+            lat = {k: [] for k in engines}
+            warm = [distinct] if name in SERVE_CUT else [insts] * reps
+            for passes in warm:
+                for q in passes:
+                    for k, e in engines.items():
+                        t = time.perf_counter()
+                        e.query(q)
+                        lat[k].append((time.perf_counter() - t) * 1e3)
+        except torch.OutOfMemoryError as exc:
+            left_out[name] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "error": str(exc).splitlines()[0][:160]}
+            del exc
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        out[name] = {k: p(v, 50) for k, v in lat.items()}
+        out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return {"p50_ms": out, "left_out": left_out,
+            "resident_gib": resident_gib}
+
+
+def planner_turns(ds, eng, queries, reps: int) -> dict:
+    """The basic templates under ``planner="estimate"`` against the
+    greedy engine ``eng``: equal as multisets (no basic template has an
+    ORDER BY, so neither pins a row order), p50s in turns, and
+    ``explain()`` of one star and one snowflake.  The estimate engine
+    is not the dataset's cached one, so its tables leave the card with
+    it."""
+    from repro_torch import Engine
+    est = Engine(ds, planner="estimate")
+
+    def check(name, q, res):
+        if not same_bag(res["estimate"], res["greedy"]):
+            raise AssertionError(f"{name}: estimate planner != greedy")
+
+    turns = timed_turns({"greedy": eng, "estimate": est}, queries, reps,
+                        check)
+    orders = {}
+    for name, insts in queries.items():
+        if name in turns["left_out"]:
+            continue
+        g, e = eng.prepare(insts[0]).plan, est.prepare(insts[0]).plan
+        orders[name] = {"planner": e.planner,
+                        "same_order": g.describe() == e.describe()}
+    turns["orders"] = orders
+    turns["explain"] = {name: est.explain(queries[name][0]).splitlines()
+                        for name in ("S1", "F1")}
+    del est
+    gc.collect()
+    torch.cuda.empty_cache()
+    return turns
+
+
+def layout_turns(ds, eng, queries, reps: int, skip=()) -> dict:
+    """The basic templates (less ``skip``) under ``layout="vp"`` and
+    ``"tt"`` against the ExtVP engine ``eng``: equal as multisets, and
+    the paper's Table 4 comparison as p50s in turns.  The vp and tt
+    engines are not the dataset's cached ones, so their tables leave
+    the card with them."""
+    from repro_torch import Engine
+    engines = {"extvp": eng}
+    engines.update({k: Engine(ds, layout=k) for k in LAYOUTS_COMPARED})
+
+    def check(name, q, res):
+        for k in LAYOUTS_COMPARED:
+            if not same_bag(res[k], res["extvp"]):
+                raise AssertionError(f"{name}: layout {k} != extvp")
+
+    turns = timed_turns(engines, {n: v for n, v in queries.items()
+                                  if n not in skip}, reps, check)
+    turns["skipped"] = list(skip)
+    for k in LAYOUTS_COMPARED:
+        if engines[k].metrics.device_fallbacks:
+            raise AssertionError(f"layout {k} fell back")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return turns
+
+
+def serve_queries(schema, seed: int, n: int, names, cut=(),
+                  cut_n: int = 0) -> dict:
+    from repro_torch.rdf.workloads import basic_queries
+    qs = basic_queries(schema, seed=seed, n_instances=n)
+    return {k: (v[:cut_n] if k in cut else v) for k, v in qs.items()
+            if k in names}
+
+
+def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
+    """7a at ``--scale`` on the main path's dataset: the server, the
+    trace turns, the estimate planner, the layouts, and the server on
+    the distributed backend at one NCCL rank."""
+    from repro_torch import RuntimeConfig, SparqlServer
+    nums = {}
+    # the latency bound at a minute: the server check wants every
+    # bucket to fill to 32 (submitting 580 requests takes longer than
+    # the default 2 ms)
+    srv = SparqlServer(ds, runtime=RuntimeConfig(flush_ms=60_000.0))
+    if srv.engine.device.type != "cuda":
+        raise AssertionError("the server does not run on the card")
+    sq = serve_queries(ds.schema, 42, SERVE_INSTANCES, queries,
+                       SERVE_CUT, SERVE_CUT_INSTANCES)
+    chk = server_check(srv, eng, sq, exact=True)
+    m = srv.metrics.summary()
+    log(f"  server: {chk['requests']} requests ({SERVE_INSTANCES} of each "
+        f"template, {SERVE_CUT_INSTANCES} of {', '.join(SERVE_CUT)}), "
+        f"interleaved, submitted and flushed in {chk['wall_s']:.1f} s; "
+        f"every result equal row for row to Engine.query's; "
+        f"{summary_line(m)}")
+    del m["routed"]
+    nums["server"] = dict(m, check=chk)
+
+    tr = trace_turns(srv.engine, queries, here)
+    log(f"  trace turns ({tr['requests_per_pass']} requests a pass, then "
+        f"{', '.join(TRACE_NO_CARDINALITY)} without the cardinality "
+        f"report): p50 by rate (ms) {json.dumps(tr['p50_ms'])}; "
+        f"{', '.join(TRACE_NO_CARDINALITY)} p50 by rate (ms) "
+        f"{json.dumps(tr['no_cardinality_p50_ms'])}; one traced request "
+        f"each with the report on (s) "
+        f"{json.dumps(tr['with_cardinality_first_s'])}; "
+        f"traced results equal untraced; "
+        f"{tr['traces']} traces kept, {tr['with_launch']} with a "
+        f"device.launch span, {tr['with_cardinalities']} flat-BGP ones "
+        f"with cardinalities, {tr['short_circuits']} short-circuited")
+    for line in tr["inspect_stages"][:12]:
+        log(f"    {line}")
+    nums["tracing"] = tr
+    nums["prometheus_bytes"] = len(srv.metrics.prometheus())
+    # the server's engine has its own runtime, so the dataset does not
+    # cache it: its tables leave the card with it
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pl = planner_turns(ds, eng, queries, args.reps)
+    log(f"  estimate planner: every result equal to greedy's (multisets); "
+        f"left out {json.dumps(pl['left_out'])}; resident at the start "
+        f"{pl['resident_gib']:.2f} GiB")
+    for name, v in pl["p50_ms"].items():
+        o = pl["orders"][name]
+        log(f"    {name}: p50 greedy {v['greedy']:.3f} ms, estimate "
+            f"{v['estimate']:.3f} ms (plan by {o['planner']}, "
+            f"{'same' if o['same_order'] else 'another'} order); peak "
+            f"{v['peak_gib']:.2f} GiB")
+    for name, lines in pl["explain"].items():
+        log(f"    explain {name} (estimate):")
+        for line in lines:
+            log(f"      {line}")
+    nums["planners"] = pl
+
+    lay = layout_turns(ds, eng, queries, args.reps)
+    log(f"  layouts at scale {args.scale}: every result equal to extvp's "
+        f"(multisets); left out (out of card memory) "
+        f"{json.dumps(lay['left_out'])}; resident at the start "
+        f"{lay['resident_gib']:.2f} GiB")
+    for name, v in lay["p50_ms"].items():
+        log(f"    {name}: p50 extvp {v['extvp']:.3f} ms, vp {v['vp']:.3f} "
+            f"ms, tt {v['tt']:.3f} ms; peak {v['peak_gib']:.2f} GiB")
+    nums["layouts"] = {str(args.scale): lay}
+    nums["distributed"] = phase_serve_distributed(ds, eng, queries, here)
+    return nums
+
+
+def phase_serve_distributed(ds, eng, queries, here: str) -> dict:
+    """The server on the distributed backend, a world of one rank over
+    NCCL as in 6a, over the templates 6a serves: interleaved submits
+    with a latency bound of 0 ms, which on one device would drain every
+    bucket on the next submit; here only full buckets and the flush
+    drain, and every result equals the single-device engine's."""
+    import torch.distributed as dist
+    from repro_torch import RuntimeConfig, SparqlServer
+    rdv = os.path.join(here, "build", "smoke_nccl_rendezvous_serve")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        srv = SparqlServer(ds, backend="distributed",
+                           runtime=RuntimeConfig(flush_ms=0.0))
+        names = [n for n in queries if n not in ONE_RANK_CUT]
+        sq = serve_queries(ds.schema, 42, SERVE_DIST_INSTANCES, names)
+        chk = server_check(srv, eng, sq, exact=False)
+        if chk["pending_after_submits"] != chk["requests"]:
+            raise AssertionError("a bucket drained before the flush on the "
+                                 "distributed backend")
+        m = srv.metrics.summary()
+        del m["routed"]
+        log(f"  distributed server (one NCCL rank): {chk['requests']} "
+            f"requests ({SERVE_DIST_INSTANCES} of each of {len(names)} "
+            f"templates), all {chk['pending_after_submits']} still queued "
+            f"after the submits at flush_ms 0, flushed in "
+            f"{chk['wall_s']:.1f} s; every result equal to the "
+            f"single-device engine's (multisets); {summary_line(m)}")
+        del srv
+        return dict(m, check=chk)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_small(args, ds, eng, queries, store: str, ops,
+                      here: str) -> dict:
+    """7b at ``--compare-scale``: every template under every layout, a
+    server booted from phase 5's store path (its journal replays through
+    the semi-join on the card), and the launcher as a subprocess."""
+    from repro_torch import Engine, SparqlServer
+    nums = {}
+    lay = layout_turns(ds, eng, queries, args.reps)
+    if lay["left_out"]:
+        raise AssertionError(f"layouts left out at {args.compare_scale}: "
+                             f"{lay['left_out']}")
+    log(f"  layouts at scale {args.compare_scale}: every result equal to "
+        f"extvp's (multisets)")
+    for name, v in lay["p50_ms"].items():
+        log(f"    {name}: p50 extvp {v['extvp']:.3f} ms, vp {v['vp']:.3f} "
+            f"ms, tt {v['tt']:.3f} ms; peak {v['peak_gib']:.2f} GiB")
+    nums["layouts"] = {str(args.compare_scale): lay}
+
+    before = ops.launches["semijoin_membership"]
+    t = time.perf_counter()
+    srv = SparqlServer(store)
+    boot_s = time.perf_counter() - t
+    if ops.launches["semijoin_membership"] <= before:
+        raise AssertionError("booting from the store ran no semi-join")
+    q = {k: v for k, v in queries.items() if k in ("S1", "L2", "F3", "C3")}
+    # the store's dictionary is phase 5's (built from the decoded
+    # triples), so its ids are not ``ds``'s: held against a fresh engine
+    # over the booted dataset (phase 5 holds that against a rebuild)
+    chk = server_check(srv, Engine(srv.dataset), q, exact=True)
+    log(f"  server booted from the store path in {boot_s:.2f} s (journal "
+        f"replayed on the card); {chk['requests']} results equal row for "
+        f"row to Engine.query's over the booted dataset")
+    nums["store_boot"] = dict(chk, boot_s=boot_s)
+    del srv
+
+    build = os.path.join(here, "build")
+    dump = os.path.join(build, "serve_trace.jsonl")
+    prom = os.path.join(build, "serve_metrics.prom")
+    for f in (dump, prom):
+        if os.path.exists(f):
+            os.remove(f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--store", store,
+         "--passes", "2", "--trace-sample", "1.0", "--trace-dump", dump,
+         "--metrics-out", prom], cwd=here, env=env, capture_output=True,
+        text=True, timeout=600)
+    launcher_s = time.perf_counter() - t
+    if out.returncode != 0:
+        raise AssertionError(f"the launcher failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    for line in out.stdout.splitlines():
+        if not line.startswith("  ST-"):
+            log(f"    launcher: {line}")
+    with open(prom) as f:
+        text = f.read()
+    for family in ("repro_request_latency_ms", "repro_stage_ms"):
+        if f"# TYPE {family} histogram" not in text:
+            raise AssertionError(f"the Prometheus file lacks {family}")
+    inspect = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "trace_inspect.py"),
+         dump, "--stages"], capture_output=True, text=True, timeout=300)
+    if inspect.returncode != 0:
+        raise AssertionError(f"trace_inspect failed: "
+                             f"{inspect.stderr[-2000:]}")
+    nums["launcher"] = {"wall_s": launcher_s, "prometheus_lines":
+                        len(text.splitlines())}
+    log(f"  launcher: exit 0 in {launcher_s:.1f} s; the Prometheus file "
+        f"has the latency and stage histograms; trace_inspect read its "
+        f"dump")
+    return nums
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=340.0)
@@ -1785,6 +2280,11 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.rdf.workloads import basic_queries
 
+    t_start = time.perf_counter()
+
+    def stage(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - t_start:.0f} s)")
+
     ident = gpu_identity()
     log(f"[1] card: {ident}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1792,39 +2292,59 @@ def main() -> int:
     libs = build.build_all()
     log(f"  built {sorted(libs)} from {build.CSRC} in "
         f"{time.perf_counter() - t:.1f} s")
-    log("[2] kernels against their plain versions")
+    stage("[2] kernels against their plain versions")
     phase_kernels(ops, ref)
     phase_semijoin_kernel(ops, ref)
     phase_bucket_kernel(ops, ref)
-    log("[3] main path")
+    stage("[3] main path")
     nums, probe_path, ds, eng, queries = phase_main(
         args, ops, ref, jexec, eb, Dataset, basic_queries)
     host_ext = phase_identity(ds, build_extvp)
-    log(f"[4] card against CPU at scale {args.scale}")
+    stage(f"[4] card against CPU at scale {args.scale}")
     compare(ds, eng, queries, ops, skip={"C1", "C2"})
-    log(f"[6a] the distributed engine, one rank over NCCL, scale "
-        f"{args.scale}")
+    stage(f"[6a] the distributed engine, one rank over NCCL, scale "
+          f"{args.scale}")
     nums["bucket_count"], one_rank = phase_one_rank(
         args, ds, eng, host_ext, queries, ops, ref, dmod, build_extvp,
         Engine, here)
+    stage(f"[7a] the serving surface at scale {args.scale}")
+    ops.reset_launches()
+    serve = phase_serve(args, ds, eng, queries, ops, here)
+    serve_launches = dict(ops.launches)
     del ds, eng, queries, host_ext
+    gc.collect()
     torch.cuda.empty_cache()
-    log(f"[4] card against CPU at scale {args.compare_scale}")
+    stage(f"[4] card against CPU at scale {args.compare_scale}")
     ds = Dataset.watdiv(scale=args.compare_scale, seed=args.seed,
                         threshold=0.25)
     queries = basic_queries(ds.schema, seed=args.seed)
     compare(ds, ds.engine(), queries, ops)
-    log(f"[5] append, save and load at scale {args.compare_scale}")
+    stage(f"[5] append, save and load at scale {args.compare_scale}")
     store = phase_store(ds, queries, ops, Dataset,
                         os.path.join(here, "build", "smoke_store"))
     queries_file = os.path.join(here, "build", "smoke_queries.json")
     with open(queries_file, "w") as f:
         json.dump(queries, f)
+    stage(f"[7b] the serving surface at scale {args.compare_scale}")
+    ops.reset_launches()
+    small = phase_serve_small(args, ds, ds.engine(), queries, store, ops,
+                              here)
+    serve["layouts"].update(small.pop("layouts"))
+    serve.update(small)
+    for k, v in ops.launches.items():
+        serve_launches[k] += v
+    if min(serve_launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the serving "
+                             f"path: {serve_launches}")
+    serve["launches"] = serve_launches
+    log(f"  launches over phase 7 (7a and 7b): {serve_launches}")
     del ds, queries
+    gc.collect()
     torch.cuda.empty_cache()
-    log(f"[6b] the distributed engine, two ranks sharing the card over "
-        f"gloo, scale {args.compare_scale}")
+    stage(f"[6b] the distributed engine, two ranks sharing the card over "
+          f"gloo, scale {args.compare_scale}")
     ranks = phase_two_ranks(args, store, queries_file, here)
+    stage("[end]")
     print(json.dumps({"phase6": {"one_rank": one_rank, "two_ranks": {
         "backend": "gloo", "ranks": 2, "scale": args.compare_scale,
         "build_s": [r["build_s"] for r in ranks],
@@ -1834,6 +2354,7 @@ def main() -> int:
         "results_equal": [r["results_equal"] for r in ranks]}}}),
         flush=True)
     print(json.dumps({"join_probe_path": probe_path}), flush=True)
+    print(json.dumps({"phase7": serve}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

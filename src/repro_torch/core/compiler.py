@@ -127,15 +127,16 @@ def compile_bgp(bgp: BGP, catalog: Catalog, layout: str = "extvp",
     """Algorithm 4 (BGP2SQL_OPT): table selection + join ordering.
 
     ``planner`` selects the join-order strategy: ``"greedy"`` is the
-    paper's (#bound values, table size) order.  ``"estimate"`` (the
-    cardinality-estimate enumerator) is not ported yet and raises
-    NotImplementedError.
+    paper's (#bound values, table size) order; ``"estimate"`` runs the
+    bounded cardinality-estimate enumerator (:mod:`repro_torch.core.estimate`)
+    over the same selected tables — emptiness short-circuits and table
+    selection are planner-invariant, only the step order changes.  An
+    estimate request silently falls back to greedy when the catalog has
+    no distinct-count statistics (e.g. a version-1 store).
     """
-    if planner == "estimate":
-        raise NotImplementedError(
-            "the estimate planner is not ported yet; use planner='greedy'")
-    if planner != "greedy":
-        raise ValueError(f"unknown planner {planner!r}; expected 'greedy'")
+    if planner not in ("greedy", "estimate"):
+        raise ValueError(
+            f"unknown planner {planner!r}; expected 'greedy' or 'estimate'")
     patterns = list(bgp.patterns)
     if not patterns:
         return Plan(steps=[], vars=())
@@ -148,6 +149,14 @@ def compile_bgp(bgp: BGP, catalog: Catalog, layout: str = "extvp",
                 for tp in patterns}
     if any(s.sf == 0.0 for s in selected.values()):
         return Plan(empty=True, vars=bgp.vars())
+
+    if planner == "estimate":
+        from repro_torch.core import estimate as _estimate
+        enumerated = _estimate.order_steps(
+            [selected[id(tp)] for tp in patterns], catalog)
+        if enumerated is not None:
+            return Plan(steps=enumerated, vars=bgp.vars(),
+                        planner="estimate")
 
     # Join ordering.  Paper: order by #bound values first, then repeatedly
     # pick the smallest-table pattern that is join-connected to the bound

@@ -705,10 +705,13 @@ class DistributedExecutor:
 
     def run(self, max_retries: int = 16,
             bounds: Optional[np.ndarray] = None,
-            fconsts: Optional[np.ndarray] = None
-            ) -> Tuple[np.ndarray, Tuple[str, ...]]:
+            fconsts: Optional[np.ndarray] = None,
+            trace=None) -> Tuple[np.ndarray, Tuple[str, ...]]:
         """Execute one binding on every rank; returns the result rows
-        (host numpy, the same on every rank) and their columns."""
+        (host numpy, the same on every rank) and their columns.  A
+        sampled request's ``trace`` gets one ``device.launch`` span per
+        attempt, ended after the all-reduce's host read (see
+        :meth:`repro_torch.core.jexec.PlanExecutor.run`)."""
         inp = self._device_inputs
         b = self._default_bounds if bounds is None else \
             np.asarray(bounds, dtype=np.int32).reshape(self._default_bounds.shape)
@@ -716,9 +719,16 @@ class DistributedExecutor:
             np.asarray(fconsts, dtype=np.int32).reshape(len(self.filter_slots))
         bj, fj = self._to_device(b), self._to_device(fc)
         caps = tuple(self.caps)
-        for _ in range(max_retries):
+        for attempt in range(max_retries):
+            sid = trace.start("device.launch", backend="distributed",
+                              attempt=attempt, batch=1,
+                              shards=self.n_shards,
+                              cap_slots=sum(caps)) \
+                if trace is not None else None
             out = self._shard_program(caps, inp, bj, fj, {})
             ovf, ns, _ = self._sync([out])
+            if trace is not None:
+                trace.end(sid, overflow=bool(ovf.any()))
             if not ovf.any():
                 self.caps = list(caps)   # keep grown caps across requests
                 return self._collect(out[0], ns[0]), self._final_cols()
@@ -728,7 +738,7 @@ class DistributedExecutor:
 
     def run_batch(self, bounds_batch: Sequence[np.ndarray],
                   fconsts_batch: Optional[Sequence[np.ndarray]] = None,
-                  max_retries: int = 16
+                  max_retries: int = 16, trace=None
                   ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
         """Execute B constant-bindings of the plan in one launch: the
         bounds-independent scans run once (:meth:`_hoist`), then every
@@ -750,12 +760,19 @@ class DistributedExecutor:
                            for f in fconsts_batch])
         bj, fj = self._to_device(bb), self._to_device(fb)
         caps = tuple(self.caps)
-        for _ in range(max_retries):
+        for attempt in range(max_retries):
+            sid = trace.start("device.launch", backend="distributed",
+                              attempt=attempt, batch=len(bb),
+                              shards=self.n_shards,
+                              cap_slots=sum(caps)) \
+                if trace is not None else None
             shared = self._hoist(inp)
             outs = [self._shard_program(caps, inp, bj[i], fj[i], shared)
                     for i in range(len(bb))]
             ovf, ns, _ = self._sync(outs)
             ovf_any = ovf.any(axis=0)
+            if trace is not None:
+                trace.end(sid, overflow=bool(ovf_any.any()))
             if not ovf_any.any():
                 self.caps = list(caps)
                 cols = self._final_cols()

@@ -1162,11 +1162,14 @@ class PlanExecutor:
 
     def run(self, max_retries: int = 16,
             bounds: Optional[np.ndarray] = None,
-            fconsts: Optional[np.ndarray] = None
-            ) -> Tuple[np.ndarray, Tuple[str, ...]]:
+            fconsts: Optional[np.ndarray] = None,
+            trace=None) -> Tuple[np.ndarray, Tuple[str, ...]]:
         """Execute one binding; returns the result rows (host numpy) and
         their columns.  The host syncs once per launch, for the row
-        count and the overflow flags, then copies the rows back."""
+        count and the overflow flags, then copies the rows back.  A
+        sampled request's ``trace`` gets one ``device.launch`` span per
+        attempt, ended after that sync (the copy of the head waits for
+        the stream), so a traced launch adds no synchronization."""
         inp = self._device_inputs
         b = self._default_bounds if bounds is None else \
             np.asarray(bounds, dtype=np.int32).reshape(self._default_bounds.shape)
@@ -1174,9 +1177,15 @@ class PlanExecutor:
             np.asarray(fconsts, dtype=np.int32).reshape(len(self.filter_slots))
         bj, fj = self._to_device(b), self._to_device(fc)
         caps = tuple(self.caps)
-        for _ in range(max_retries):
+        for attempt in range(max_retries):
+            sid = trace.start("device.launch", backend="torch",
+                              attempt=attempt, batch=1,
+                              cap_slots=sum(caps)) \
+                if trace is not None else None
             data, n, ovf = self._program(caps, inp, bj, fj, {})
             head = torch.cat([n.reshape(1), ovf.to(_I32)]).cpu().numpy()
+            if trace is not None:
+                trace.end(sid, overflow=bool(head[1:].any()))
             if not head[1:].any():
                 # keep grown caps: a hot template must not pay the
                 # overflow->retry double-launch on every request
@@ -1187,14 +1196,16 @@ class PlanExecutor:
 
     def run_batch(self, bounds_batch: Sequence[np.ndarray],
                   fconsts_batch: Optional[Sequence[np.ndarray]] = None,
-                  max_retries: int = 16
+                  max_retries: int = 16, trace=None
                   ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
         """Execute B constant-bindings of this template in one launch:
         the bounds-independent scans and their build-side presorts run
         once (:meth:`_hoist`), then each binding's constant-dependent
         work runs in turn on the same stream, and the host syncs once at
         the end.  Overflow on *any* batch element retries the whole
-        batch with doubled caps — the batch shares one cap vector."""
+        batch with doubled caps — the batch shares one cap vector.
+        ``trace`` (the batch's lead request) gets one ``device.launch``
+        span per attempt, as in :meth:`run`."""
         if not bounds_batch:
             return []
         inp = self._device_inputs
@@ -1209,13 +1220,19 @@ class PlanExecutor:
                            for f in fconsts_batch])
         bj, fj = self._to_device(bb), self._to_device(fb)
         caps = tuple(self.caps)
-        for _ in range(max_retries):
+        for attempt in range(max_retries):
+            sid = trace.start("device.launch", backend="torch",
+                              attempt=attempt, batch=len(bb),
+                              cap_slots=sum(caps)) \
+                if trace is not None else None
             shared = self._hoist(inp)
             outs = [self._program(caps, inp, bj[i], fj[i], shared)
                     for i in range(len(bb))]
             head = torch.stack([torch.cat([n.reshape(1), ovf.to(_I32)])
                                 for _, n, ovf in outs]).cpu().numpy()
             ovf_any = head[:, 1:].any(axis=0)
+            if trace is not None:
+                trace.end(sid, overflow=bool(ovf_any.any()))
             if not ovf_any.any():
                 self.caps = list(caps)
                 cols = self._final_cols()

@@ -54,8 +54,7 @@ class Catalog:
     store: object = None                # Optional[repro_torch.store.StoreInfo]
     #: per-predicate distinct-subject / distinct-object counts and second
     #: moments (Σ per-value-count²) over the VP tables — the statistics
-    #: of the cardinality-estimate planner, carried so a catalog holds
-    #: everything the reference's does
+    #: of the cardinality-estimate planner (:mod:`repro_torch.core.estimate`)
     distinct_s: Optional[Dict[int, int]] = None
     distinct_o: Optional[Dict[int, int]] = None
     m2_s: Optional[Dict[int, int]] = None
@@ -86,6 +85,37 @@ class Catalog:
         the full VP relation while the plan's ordering and size
         statistics assume the reduced one."""
         return (kind, p1, p2) in self.extvp.tables
+
+    @property
+    def has_distinct_stats(self) -> bool:
+        """True when per-predicate distinct counts are available (the
+        estimate planner's enabling condition)."""
+        return bool(self.distinct_s) and bool(self.distinct_o)
+
+    def distinct(self, p: int) -> Optional[Tuple[int, int]]:
+        """(distinct subjects, distinct objects) of VP_p, or ``None`` when
+        the statistics are absent (old store) or the predicate is unknown."""
+        if not self.distinct_s or not self.distinct_o:
+            return None
+        p = int(p)
+        ds = self.distinct_s.get(p)
+        do = self.distinct_o.get(p)
+        if ds is None or do is None:
+            return None
+        return ds, do
+
+    def second_moment(self, p: int) -> Optional[Tuple[int, int]]:
+        """(Σ subject-count², Σ object-count²) of VP_p, or ``None`` when
+        the skew statistics are absent — the estimator then assumes a
+        uniform value distribution (``size / distinct``)."""
+        if not self.m2_s or not self.m2_o:
+            return None
+        p = int(p)
+        ms = self.m2_s.get(p)
+        mo = self.m2_o.get(p)
+        if ms is None or mo is None:
+            return None
+        return ms, mo
 
     # ---- table access -------------------------------------------------------
     def table(self, kind: Optional[str], p1: int, p2: Optional[int] = None) -> Optional[Table]:

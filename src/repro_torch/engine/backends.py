@@ -10,10 +10,16 @@ re-parsing or re-compiling.
 This package has two backends: ``"torch"``, the static-capacity
 executor of :mod:`repro_torch.core.jexec` on the engine's device, and
 ``"distributed"``, the executor of :mod:`repro_torch.core.distributed`
-over the ranks of a ``torch.distributed`` process group.  Neither has a
-host engine to fall back on, so a template they cannot serve (the
-``estimate`` planner, a dictionary whose numeric keys defeat the
+over the ranks of a ``torch.distributed`` process group.  Both compile
+for the ``"extvp"``, ``"vp"`` and ``"tt"`` layouts.  Neither has a host
+engine to fall back on, so a template they cannot serve (the host-only
+``"pt"`` layout, a dictionary whose numeric keys defeat the
 double-single encoding) raises NotImplementedError at prepare time.
+
+A sampled request's :class:`~repro_torch.obs.tracer.TraceContext`
+rides along by argument (``run(binding, trace)``): the prepared query
+opens ``decode`` / ``demux`` spans and marks statistics short-circuits,
+and the executor opens one ``device.launch`` span per attempt.
 """
 
 from __future__ import annotations
@@ -43,13 +49,18 @@ _NO_BINDING = ConstantBinding(mapping={}, missing=False)
 
 @dataclass
 class ExecutionContext:
-    """Everything a backend needs to prepare and run queries.  ``device``
-    ``None`` means ``"cuda"``; ``group`` is the ``torch.distributed``
-    process group of the distributed backend (``None``: the default
-    group)."""
+    """Everything a backend needs to prepare and run queries.  ``layout``
+    is the storage schema plans compile for (``"extvp"``, ``"vp"``,
+    ``"tt"``); ``device`` ``None`` means ``"cuda"``; ``group`` is the
+    ``torch.distributed`` process group of the distributed backend
+    (``None``: the default group)."""
 
     catalog: Catalog
     dictionary: object = None            # Optional[repro_torch.rdf.Dictionary]
+    layout: str = "extvp"
+    #: join-order planner compiled plans use ("greedy" | "estimate");
+    #: the Engine refreshes this before every prepare and keys its plan
+    #: cache on it
     planner: str = "greedy"
     device: torch.device = None
     group: object = None
@@ -68,13 +79,20 @@ class PreparedQuery:
         self.ctx = ctx
         self.query = template.query
 
-    def run(self, binding: Optional[ConstantBinding] = None) -> Result:
+    def run(self, binding: Optional[ConstantBinding] = None,
+            trace=None) -> Result:
+        """``trace`` is the sampled request's
+        :class:`~repro_torch.obs.tracer.TraceContext` (or ``None``, the
+        default and the fast path)."""
         raise NotImplementedError
 
-    def run_batch(self, bindings: List[Optional[ConstantBinding]]
-                  ) -> List[Result]:
-        """One Result per binding, in order (the sequential loop)."""
-        return [self.run(b) for b in bindings]
+    def run_batch(self, bindings: List[Optional[ConstantBinding]],
+                  trace=None) -> List[Result]:
+        """One Result per binding, in order (the sequential loop).
+        ``trace`` is the chunk's lead trace context; the loop attributes
+        it to the first binding."""
+        return [self.run(b, trace=trace if i == 0 else None)
+                for i, b in enumerate(bindings)]
 
     @property
     def out_cols(self) -> Tuple[str, ...]:
@@ -94,7 +112,10 @@ class _EmptyPrepared(PreparedQuery):
         self.backend = backend
         self.plan = Plan(empty=True, vars=self.out_cols)
 
-    def run(self, binding: Optional[ConstantBinding] = None) -> Result:
+    def run(self, binding: Optional[ConstantBinding] = None,
+            trace=None) -> Result:
+        if trace is not None:
+            trace.event("short_circuit", why="statistics-empty plan")
         return self._empty()
 
 
@@ -116,18 +137,28 @@ class _VectorizedPrepared(PreparedQuery):
         # not re-project or re-dedup (that would destroy the row order)
         return Result(Bindings(cols, data), self.ctx.dictionary)
 
-    def run(self, binding: Optional[ConstantBinding] = None) -> Result:
+    def run(self, binding: Optional[ConstantBinding] = None,
+            trace=None) -> Result:
         binding = binding or _NO_BINDING
         if binding.missing:
+            if trace is not None:
+                trace.event("short_circuit", why="constant missing "
+                            "from the dictionary")
             return self._empty()
         plan = rebind_plan(self.plan, binding.mapping)
         data, cols = self.executor.run(
             bounds=self.executor.bounds_from_plan(plan),
-            fconsts=self.executor.fconsts_from_mapping(binding.mapping))
-        return self._wrap(data, cols)
+            fconsts=self.executor.fconsts_from_mapping(binding.mapping),
+            trace=trace)
+        if trace is None:
+            return self._wrap(data, cols)
+        sid = trace.start("decode")
+        res = self._wrap(data, cols)
+        trace.end(sid, rows=len(res))
+        return res
 
-    def run_batch(self, bindings: List[Optional[ConstantBinding]]
-                  ) -> List[Result]:
+    def run_batch(self, bindings: List[Optional[ConstantBinding]],
+                  trace=None) -> List[Result]:
         bindings = [b or _NO_BINDING for b in bindings]
         results: List[Optional[Result]] = [None] * len(bindings)
         live: List[int] = []
@@ -142,9 +173,13 @@ class _VectorizedPrepared(PreparedQuery):
                     rebind_plan(self.plan, b.mapping)))
                 fconsts.append(self.executor.fconsts_from_mapping(b.mapping))
         if live:
-            outs = self.executor.run_batch(bounds, fconsts)
+            outs = self.executor.run_batch(bounds, fconsts, trace=trace)
+            sid = trace.start("demux", batch=len(bindings),
+                              live=len(live)) if trace is not None else None
             for i, (data, cols) in zip(live, outs):
                 results[i] = self._wrap(data, cols)
+            if trace is not None:
+                trace.end(sid)
         return results
 
 
@@ -159,8 +194,14 @@ class TorchBackend:
 
     def prepare(self, template: QueryTemplate,
                 ctx: ExecutionContext) -> PreparedQuery:
+        if ctx.layout == "pt":
+            # the reference serves the property table on its host engine;
+            # the port has none yet
+            raise NotImplementedError(
+                "the 'pt' layout runs on a host engine, which the port "
+                "does not have")
         core, spine = peel_spine(template.query)
-        cp = compile_core(core, ctx.catalog, planner=ctx.planner)
+        cp = compile_core(core, ctx.catalog, ctx.layout, ctx.planner)
         if cp.empty:
             return _EmptyPrepared(template, ctx, self.name)
         return self._prepared(template, ctx, cp, spine)

@@ -297,22 +297,33 @@ class Dataset:
 
     # -- engines --------------------------------------------------------------
     def engine(self, backend: str = "torch", device=None,
-               planner: str = "greedy", plan_cache_size: int = 512,
-               group=None, dual_partition: bool = False) -> Engine:
-        """An :class:`Engine` over this dataset, cached per configuration
-        so repeated calls share plan caches.  ``device=None`` means the
-        dataset's device, ``group=None`` the dataset's group (of the
-        ``"distributed"`` backend)."""
+               layout: str = "extvp", planner: Optional[str] = None,
+               plan_cache_size: int = 512, group=None,
+               dual_partition: bool = False, runtime=None) -> Engine:
+        """An :class:`Engine` over this dataset.  ``device=None`` means
+        the dataset's device, ``group=None`` the dataset's group (of the
+        ``"distributed"`` backend); ``layout`` is the storage schema
+        (``"extvp"``, ``"vp"``, ``"tt"``); ``planner=None`` reads the
+        planner from ``runtime`` (a
+        :class:`~repro_torch.runtime.RuntimeConfig`, ``None`` meaning the
+        process-wide default).
+
+        Engines on the default config are cached per configuration, so
+        repeated calls share plan caches.  An engine given its own
+        ``runtime`` is not cached: it holds its device tables only as
+        long as its caller holds it."""
         dev = resolve_device(self.device if device is None else device)
         group = self.group if group is None else group
-        key = (backend, str(dev), planner, plan_cache_size, id(group),
-               dual_partition)
-        eng = self._engines.get(key)
+        key = (backend, str(dev), layout, planner, plan_cache_size,
+               id(group), dual_partition)
+        eng = None if runtime is not None else self._engines.get(key)
         if eng is None:
-            eng = Engine(self, backend=backend, device=dev,
+            eng = Engine(self, backend=backend, device=dev, layout=layout,
                          planner=planner, plan_cache_size=plan_cache_size,
-                         group=group, dual_partition=dual_partition)
-            self._engines[key] = eng
+                         group=group, dual_partition=dual_partition,
+                         runtime=runtime)
+            if runtime is None:
+                self._engines[key] = eng
         return eng
 
     @property

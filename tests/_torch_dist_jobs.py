@@ -124,8 +124,8 @@ def job_suite(args):
         out["dual"][name] = dict(
             _result(res), exchanges=D.exchanges["all_to_all"],
             info=executor_info(dual.prepare(q).executor))
-    out["fallbacks"] = eng.metrics["device_fallbacks"] + \
-        dual.metrics["device_fallbacks"]
+    out["fallbacks"] = eng.metrics.device_fallbacks + \
+        dual.metrics.device_fallbacks
     return out
 
 
@@ -141,7 +141,7 @@ def job_queries(args):
     batched = [_result(r) for r in eng.query_batch(list(args["queries"]))]
     return {"single": single, "batched": batched,
             "terms": list(ds.dictionary.id_to_term),
-            "fallbacks": eng.metrics["device_fallbacks"]}
+            "fallbacks": eng.metrics.device_fallbacks}
 
 
 def job_repartition(args):
@@ -222,9 +222,53 @@ def job_isolation(args):
     return {"rows": rows, "bad": bad}
 
 
+def job_serve(args):
+    """A ``SparqlServer`` on the distributed backend: interleaved
+    template instances submitted through its micro-batcher with a
+    latency bound that would expire on every submit on one device, then
+    flushed; every ticket's rows against the single-device engine on
+    this rank, the queue left after the submits (the size bound alone
+    drains buckets here), the batches, and the traced launch spans."""
+    from repro_torch import Dataset, RuntimeConfig, SparqlServer
+    from repro_torch.rdf.workloads import basic_queries
+
+    ds = Dataset.watdiv(scale=args["scale"], seed=0, threshold=0.25,
+                        device="cpu")
+    cfg = RuntimeConfig(flush_ms=0.0, trace_sample_rate=1.0)
+    srv = SparqlServer(ds, backend="distributed", runtime=cfg,
+                       max_batch=args["max_batch"])
+    one = ds.engine()
+    qs = basic_queries(ds.schema, seed=3, n_instances=args["instances"])
+    order = [qs[name][i] for i in range(args["instances"])
+             for name in qs]
+    tickets = [srv.submit(q) for q in order]
+    pending = srv.batcher.pending()
+    served = srv.flush()
+    equal = 0
+    for q, t in zip(order, tickets):
+        got, want = t.result(), one.query(q)
+        assert got.cols == want.cols, q
+        assert sorted(map(tuple, got.data.tolist())) == \
+            sorted(map(tuple, want.data.tolist())), q
+        equal += 1
+    launches = [e for e in srv.engine.tracer.chrome_trace()["traceEvents"]
+                if e.get("ph") == "X" and e["name"] == "device.launch"]
+    m = srv.metrics.summary()
+    return {"equal": equal, "pending": pending, "served": served,
+            "templates": len(qs), "batches": m["batches"],
+            "batched_requests": m["batched_requests"],
+            "fallbacks": m["device_fallbacks"],
+            "launch_backends": sorted({e["args"]["backend"]
+                                       for e in launches}),
+            "launch_shards": sorted({e["args"]["shards"] for e in launches}),
+            "with_cardinalities": sum("cardinalities" in e["args"]
+                                      for e in launches),
+            "launch_spans": len(launches)}
+
+
 JOBS = {"suite": job_suite, "queries": job_queries,
         "repartition": job_repartition, "build": job_build,
-        "isolation": job_isolation}
+        "isolation": job_isolation, "serve": job_serve}
 
 
 def main() -> None:

@@ -90,7 +90,7 @@ def test_basic_suite_matches_jit(watdiv):
     for qtext in queries.values():
         rows += len(assert_same(ref_eng, eng, qtext))
     assert rows > 0
-    assert eng.metrics["device_fallbacks"] == 0
+    assert eng.metrics.device_fallbacks == 0
 
 
 def test_basic_batch_equals_one_by_one(watdiv):
@@ -112,7 +112,7 @@ def test_fixed_corpus_matches_jit(tau):
     for qtext in FIXED_QUERIES:
         assert_same(ref_eng, eng, qtext)
     assert ref_eng.metrics.device_fallbacks == 0
-    assert eng.metrics["device_fallbacks"] == 0
+    assert eng.metrics.device_fallbacks == 0
 
 
 MODIFIER_QUERIES = [
@@ -215,8 +215,8 @@ def test_missing_constant_short_circuits():
 
 def test_unported_paths_raise_and_are_counted():
     ds = Dataset.from_triples(MOD_TRIPLES, device="cpu")
-    eng = ds.engine(planner="estimate")
+    eng = ds.engine(layout="pt")
     with pytest.raises(NotImplementedError):
         eng.query("SELECT * WHERE { ?u ex:likes ?p }")
-    assert eng.metrics["device_fallbacks"] == 1
+    assert eng.metrics.device_fallbacks == 1
     assert len(eng.cache) == 0

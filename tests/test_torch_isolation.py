@@ -53,6 +53,31 @@ print("BAD", bad)
 """
 
 
+_SERVE_CHILD = r"""
+import sys
+import repro_torch.launch.serve
+import repro_torch.obs, repro_torch.obs.prometheus
+import repro_torch.runtime
+import repro_torch.serve
+from repro_torch import Dataset, RuntimeConfig, SparqlServer
+from repro_torch.rdf.workloads import basic_queries
+ds = Dataset.watdiv(scale=0.05, seed=1, threshold=0.25, device="cpu")
+srv = SparqlServer(ds, runtime=RuntimeConfig(planner="estimate",
+                                             trace_sample_rate=1.0))
+qs = basic_queries(ds.schema, seed=1)
+tickets = [srv.submit(q) for insts in qs.values() for q in insts]
+srv.flush()
+rows = sum(len(t.result()) for t in tickets)
+text = srv.metrics.prometheus() + srv.engine.tracer.to_jsonl()
+text += srv.engine.explain(qs["S1"][0])
+rows += len(ds.engine(layout="tt").query(qs["L4"][0]))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows, "TEXT", len(text) > 0)
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -75,6 +100,18 @@ def test_load_path_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "SAME True LAUNCHES 0" in out.stdout, out.stdout
+    assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_serving_layer_imports_neither_jax_nor_repro():
+    """The server, its micro-batcher, tracing and Prometheus export, the
+    estimate planner, the layouts and the launcher module, all through
+    the port."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "TEXT True" in out.stdout, out.stdout
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
 
 
