@@ -80,15 +80,37 @@ Phases (any failure exits non-zero and prints no result line):
    memory is left out and listed); the server on the distributed
    backend at one NCCL rank, where no bucket drains by the clock.  7b,
    at ``--compare-scale`` after phase 5: every template under every
-   layout, a server booted from phase 5's store path, and ``python -m
-   repro_torch.launch.serve`` on that store as a subprocess (exit 0,
+   layout, one traced request of each ``TRACE_NO_CARDINALITY`` template
+   with the cardinality report on (timed), a server booted from phase
+   5's store path, and ``python -m repro_torch.launch.serve`` on that
+   store as a subprocess (exit 0,
    latency and stage histograms in its Prometheus file, its trace dump
    read by ``tools/trace_inspect.py``).
+8. the adaptive runtime and the host engine, with the kernels' launch
+   counts reset just before each part and read just after.  8a, at
+   ``--scale`` after 7a: ``Engine(ds, backend="auto")`` (a
+   ``SparqlServer``'s, default router knobs) serves ``AUTO_INSTANCES``
+   instances of every template but ``AUTO_SMALL_ONLY`` one by one, each
+   held against the torch engine (row for row when routed to torch, as
+   a multiset when to eager), with join-probe launches counted over the
+   auto calls routed to torch (more than 0) and no ``failed``
+   exclusion; per template the router's seat, reason, EWMAs, requests
+   routed to each backend and warm p50s through auto, torch and eager;
+   the same templates under ``layout="pt"`` (the flagged eager
+   fallback: every request counted), equal to the eager engine's, with
+   their host-time p50s beside phase 7's extvp, vp and tt columns; two
+   served passes of 7a's request mix (less ``AUTO_SMALL_ONLY``) through
+   the auto server, one with the default router knobs (less
+   ``DEFAULT_KNOBS_CUT``: its eager share and batch p50 / p99) and one
+   with the probes off, and the Prometheus page's router and tuner
+   families.  8b, at ``--compare-scale`` after 7b: the
+   same for ``AUTO_SMALL_ONLY`` through auto and all 20 templates under
+   pt.  The cuts are printed as ``reduced``.
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
-over the main path, one with phase 7's numbers, one with the kernels'
-numbers, then the card's name and power limit, then
+over the main path, one with phase 7's numbers, one with phase 8's, one
+with the kernels' numbers, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1081,6 +1103,7 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
         stats = serve_suite(eng, queries, args.reps)
         serve_s = time.perf_counter() - t
     launches = dict(ops.launches)
+    no_fallbacks(eng, "main path")
     peak = torch.cuda.max_memory_allocated()
     log(f"  served {sum(len(v) for v in queries.values())} queries x "
         f"{1 + args.reps} + {len(queries)} batches in {serve_s:.1f} s; "
@@ -1590,6 +1613,7 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
             stats = serve_distributed(deng, eng, queries, args.reps, order)
             serve_s = time.perf_counter() - t
         launches = dict(ops.launches)
+        no_fallbacks(deng, "distributed engine")
         ex = dict(dmod.exchanges)
         same_extvp(host_ext, ext, "distributed ExtVP (one rank)")
         log(f"  distributed ExtVP build (one rank) {build_s:.3f} s, "
@@ -1846,6 +1870,15 @@ def server_check(srv, eng, queries, exact: bool) -> dict:
             "served_by_flush": flushed, "wall_s": wall_s}
 
 
+def no_fallbacks(eng, what: str) -> None:
+    """Every request ``eng`` served ran on the device path: none went
+    through the eager fallback."""
+    n = eng.metrics.device_fallbacks
+    if n:
+        raise AssertionError(f"{what}: {n} requests served by the eager "
+                             "fallback")
+
+
 def summary_line(m: dict) -> str:
     return (f"served {m['served']}, p50 {m['p50_ms']:.3f} ms, p90 "
             f"{m['p90_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, queue p50 "
@@ -2025,6 +2058,7 @@ def planner_turns(ds, eng, queries, reps: int) -> dict:
     turns["orders"] = orders
     turns["explain"] = {name: est.explain(queries[name][0]).splitlines()
                         for name in ("S1", "F1")}
+    no_fallbacks(est, "estimate planner")
     del est
     gc.collect()
     torch.cuda.empty_cache()
@@ -2081,6 +2115,7 @@ def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
     sq = serve_queries(ds.schema, 42, SERVE_INSTANCES, queries,
                        SERVE_CUT, SERVE_CUT_INSTANCES)
     chk = server_check(srv, eng, sq, exact=True)
+    no_fallbacks(srv.engine, "server")
     m = srv.metrics.summary()
     log(f"  server: {chk['requests']} requests ({SERVE_INSTANCES} of each "
         f"template, {SERVE_CUT_INSTANCES} of {', '.join(SERVE_CUT)}), "
@@ -2105,6 +2140,7 @@ def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
     for line in tr["inspect_stages"][:12]:
         log(f"    {line}")
     nums["tracing"] = tr
+    no_fallbacks(srv.engine, "trace turns")
     nums["prometheus_bytes"] = len(srv.metrics.prometheus())
     # the server's engine has its own runtime, so the dataset does not
     # cache it: its tables leave the card with it
@@ -2138,6 +2174,7 @@ def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
             f"ms, tt {v['tt']:.3f} ms; peak {v['peak_gib']:.2f} GiB")
     nums["layouts"] = {str(args.scale): lay}
     nums["distributed"] = phase_serve_distributed(ds, eng, queries, here)
+    no_fallbacks(eng, "the torch engine of phases 3-7a")
     return nums
 
 
@@ -2161,6 +2198,7 @@ def phase_serve_distributed(ds, eng, queries, here: str) -> dict:
         names = [n for n in queries if n not in ONE_RANK_CUT]
         sq = serve_queries(ds.schema, 42, SERVE_DIST_INSTANCES, names)
         chk = server_check(srv, eng, sq, exact=False)
+        no_fallbacks(srv.engine, "distributed server")
         if chk["pending_after_submits"] != chk["requests"]:
             raise AssertionError("a bucket drained before the flush on the "
                                  "distributed backend")
@@ -2176,6 +2214,32 @@ def phase_serve_distributed(ds, eng, queries, here: str) -> dict:
         return dict(m, check=chk)
     finally:
         dist.destroy_process_group()
+
+
+def heavy_report_turn(ds, queries) -> dict:
+    """One traced request of each ``TRACE_NO_CARDINALITY`` template with
+    the cardinality report on, on a fresh engine (its first sight: the
+    report joins every step on the host), timed; each trace must carry
+    a ``device.launch`` span with the cardinalities."""
+    from repro_torch import Engine, RuntimeConfig
+    eng = Engine(ds, runtime=RuntimeConfig(trace_sample_rate=1.0))
+    report_s = {}
+    for name in TRACE_NO_CARDINALITY:
+        t = time.perf_counter()
+        eng.query(queries[name][0])
+        report_s[name] = time.perf_counter() - t
+    traces = eng.tracer.recorder.traces()
+    carded = [any(s.name == "device.launch" for s in ctx.spans)
+              and all("cardinalities" in s.attrs for s in ctx.spans
+                      if s.name == "device.launch")
+              for ctx in traces]
+    if len(traces) != len(TRACE_NO_CARDINALITY) or not all(carded):
+        raise AssertionError("a traced request with the report on carries "
+                             "no cardinalities")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report_s
 
 
 def phase_serve_small(args, ds, eng, queries, store: str, ops,
@@ -2195,6 +2259,11 @@ def phase_serve_small(args, ds, eng, queries, store: str, ops,
         log(f"    {name}: p50 extvp {v['extvp']:.3f} ms, vp {v['vp']:.3f} "
             f"ms, tt {v['tt']:.3f} ms; peak {v['peak_gib']:.2f} GiB")
     nums["layouts"] = {str(args.compare_scale): lay}
+    report_s = heavy_report_turn(ds, queries)
+    log(f"  one traced request each with the cardinality report on, at "
+        f"scale {args.compare_scale} (s): {json.dumps(report_s)}; each "
+        f"trace's launch spans carry the cardinalities")
+    nums["with_cardinality_first_s"] = {str(args.compare_scale): report_s}
 
     before = ops.launches["semijoin_membership"]
     t = time.perf_counter()
@@ -2250,6 +2319,240 @@ def phase_serve_small(args, ds, eng, queries, store: str, ops,
         f"has the latency and stage histograms; trace_inspect read its "
         f"dump")
     return nums
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the adaptive runtime and the host engine
+# ---------------------------------------------------------------------------
+
+#: instances of a template the auto engine serves one by one, drawn
+#: with this seed
+AUTO_INSTANCES = 32
+AUTO_SEED = 8
+#: templates phase 8 serves at --compare-scale only: on the host engine
+#: their joins take 254 s (C1) and 32 s (C2) a run at scale 340 (the
+#: cardinality report of PR 17's run 3 is the same host join), and the
+#: router runs each on eager at least router_warmup + router_discard
+#: times
+AUTO_SMALL_ONLY = ("C1", "C2")
+#: templates the served pass with the default router knobs leaves out:
+#: over 200 ms a request on the host engine at scale 340 (F1, F4 and C3
+#: over 500 ms), where each probe sends a whole batch of 32 there
+DEFAULT_KNOBS_CUT = ("F1", "F2", "F4", "C3")
+#: warm passes a template takes on the pt layout for its p50 (the
+#: AUTO_SMALL_ONLY ones take one: on the host their pt joins take
+#: seconds)
+PT_REPS = 2
+
+
+def auto_turns(auto, eng, queries, ops) -> dict:
+    """Each template's ``AUTO_INSTANCES`` instances through the auto
+    engine one by one, each timed on the host clock and held against the
+    torch engine ``eng`` (timed too): row for row when the router sent
+    it to torch (the same executor), as a multiset when to eager (no
+    basic template pins a row order).  Join-probe launches are counted
+    over the auto calls alone.  Per template: the router's seat, reason
+    and EWMAs, the requests routed to each backend, and warm p50s through
+    auto (after the router's warmup), torch and eager (the eager runs
+    less the first, which the router discards too)."""
+    from repro_torch.engine import template_signature
+    cfg = auto.config
+    warm_after = (cfg.router_warmup + cfg.router_discard) * \
+        len(auto.backends)
+    out, probe_launches = {}, 0
+    for name, insts in queries.items():
+        lat = {"auto": [], "torch": [], "eager": []}
+        routed = {}
+        for i, q in enumerate(insts):
+            before = ops.launches["join_probe"]
+            t = time.perf_counter()
+            got = auto.query(q)
+            ms = (time.perf_counter() - t) * 1e3
+            backend = auto.router.log[-1]["backend"]
+            if backend == "torch":
+                probe_launches += ops.launches["join_probe"] - before
+            routed[backend] = routed.get(backend, 0) + 1
+            if i >= warm_after:
+                lat["auto"].append(ms)
+            if backend == "eager":
+                lat["eager"].append(ms)
+            t = time.perf_counter()
+            want = eng.query(q)
+            lat["torch"].append((time.perf_counter() - t) * 1e3)
+            same = same_rows if backend == "torch" else same_bag
+            if not same(got, want):
+                raise AssertionError(f"{name}: auto ({backend}) != torch")
+            del got, want
+        st = auto.router.report()["signatures"][template_signature(insts[0])]
+        if st["failed"]:
+            raise AssertionError(f"{name}: the router excluded "
+                                 f"{st['failed']} as failed")
+        out[name] = {
+            "seat": st["choice"], "reason": st["reason"],
+            "ewma_ms": st["ewma_ms"], "routed": routed,
+            "fallback": st["fallback"],
+            "p50_ms": {k: p(v[1:] if k == "eager" and len(v) > 1 else v, 50)
+                       for k, v in lat.items() if v}}
+    return {"templates": out, "join_probe_launches": probe_launches}
+
+
+def pt_turns(ds, queries, names) -> dict:
+    """Every template of ``names`` under ``layout="pt"`` on a torch
+    engine, which serves it through the flagged eager fallback: one cold
+    run held against the eager engine (multisets), then warm runs for a
+    p50 of host time.  Every request must count as a fallback."""
+    from repro_torch import Engine
+    pt = Engine(ds, layout="pt")
+    eager = Engine(ds, backend="eager")
+    out = {}
+    for name in names:
+        q = queries[name][0]
+        if not same_bag(pt.query(q), eager.query(q)):
+            raise AssertionError(f"{name}: pt != eager")
+        lat = []
+        for _ in range(1 if name in AUTO_SMALL_ONLY else PT_REPS):
+            t = time.perf_counter()
+            pt.query(q)
+            lat.append((time.perf_counter() - t) * 1e3)
+        out[name] = p(lat, 50)
+    m = pt.metrics.summary()
+    if m["device_fallbacks"] != m["served"]:
+        raise AssertionError(f"pt: {m['device_fallbacks']} fallbacks for "
+                             f"{m['served']} requests")
+    return {"p50_ms": out, "served": m["served"],
+            "device_fallbacks": m["device_fallbacks"]}
+
+
+def log_auto(turns: dict, pt: dict, layouts: dict) -> None:
+    for name, v in turns["templates"].items():
+        ewma = ", ".join(f"{b} {ms:.3f}" for b, ms in
+                         sorted(v["ewma_ms"].items()))
+        p50 = ", ".join(f"{b} {ms:.3f}" for b, ms in v["p50_ms"].items())
+        log(f"    {name}: seat {v['seat']} ({v['reason']}); EWMA ms "
+            f"{ewma}; routed {json.dumps(v['routed'])}; warm p50 ms {p50}")
+    for name, ms in pt["p50_ms"].items():
+        lay = layouts.get(name)
+        cols = "" if lay is None else (
+            f"; extvp {lay['extvp']:.3f}, vp {lay['vp']:.3f}, tt "
+            f"{lay['tt']:.3f} ms (phase 7, card)")
+        log(f"    {name}: pt p50 {ms:.3f} ms (host time){cols}")
+
+
+def phase_adaptive(args, ds, eng, queries, ops, scale: float, auto_names,
+                   pt_names, layouts: dict, serve_mix: bool) -> dict:
+    """Phase 8 at one scale: ``auto_names`` through an auto engine,
+    ``pt_names`` under the pt layout, and (``serve_mix``) one served
+    pass of phase 7a's request mix through the same auto engine."""
+    from repro_torch import RuntimeConfig, SparqlServer
+    nums = {"scale": scale}
+    # the server's engine is Engine(ds, backend="auto") with the default
+    # router and tuner knobs; the latency bound at a minute lets the
+    # served pass fill its buckets
+    srv = SparqlServer(ds, backend="auto",
+                       runtime=RuntimeConfig(flush_ms=60_000.0))
+    auto = srv.engine
+    if auto.backends != ("eager", "torch") or \
+            auto.device.type != "cuda":
+        raise AssertionError(f"auto engine over {auto.backends} on "
+                             f"{auto.device}")
+    t = time.perf_counter()
+    aq = serve_queries(ds.schema, AUTO_SEED, AUTO_INSTANCES, auto_names)
+    turns = auto_turns(auto, eng, aq, ops)
+    turns["wall_s"] = time.perf_counter() - t
+    if turns["join_probe_launches"] <= 0:
+        raise AssertionError("the torch seat launched no join probe")
+    t = time.perf_counter()
+    pt = pt_turns(ds, queries, pt_names)
+    pt["wall_s"] = time.perf_counter() - t
+    log(f"  auto engine at scale {scale}: {len(auto_names)} templates x "
+        f"{AUTO_INSTANCES} requests in {turns['wall_s']:.1f} s, every "
+        f"result equal to the torch engine's (row for row when routed to "
+        f"torch, multisets when to eager), no failed exclusion, "
+        f"{turns['join_probe_launches']} join-probe launches on the torch "
+        f"seat; pt layout: {pt['served']} requests in {pt['wall_s']:.1f} "
+        f"s, all {pt['device_fallbacks']} eager fallbacks, results equal "
+        f"to the eager engine's")
+    log_auto(turns, pt, layouts)
+    nums["auto"], nums["pt"] = turns, pt
+    if serve_mix:
+        nums["served"] = served_auto(srv, eng, ds, queries)
+    del srv, auto
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+def served_pass(srv, eng, ds, names) -> dict:
+    """Phase 7a's request mix over ``names`` submitted to the auto
+    server ``srv`` and flushed once, each ticket held against the torch
+    engine (multisets).  From the router's log of the pass: the requests
+    routed to each backend and why, the eager share, and the p50 and p99
+    over requests of the batch wall time each request saw (the host
+    clock around its ``run_batch`` chunk; the flush runs the groups one
+    after another)."""
+    sq = serve_queries(ds.schema, 42, SERVE_INSTANCES, names)
+    before = srv.metrics.batches
+    chk = server_check(srv, eng, sq, exact=False)
+    chunks = srv.metrics.batches - before
+    log_tail = list(srv.engine.router.log)[-chunks:] if chunks else []
+    routed, reasons, waits = {}, {}, []
+    for e in log_tail:
+        w = int(e["weight"])
+        routed[e["backend"]] = routed.get(e["backend"], 0) + w
+        key = f"{e['backend']}/{e['reason']}"
+        reasons[key] = reasons.get(key, 0) + w
+        waits.extend([e["ms"] * w] * w)
+    n = sum(routed.values())
+    if n != chk["requests"]:
+        raise AssertionError(f"the router's log covers {n} of "
+                             f"{chk['requests']} requests")
+    return {"check": chk, "routed": routed, "reasons": reasons,
+            "eager_share": routed.get("eager", 0) / n,
+            "batch_p50_ms": p(waits, 50), "batch_p99_ms": p(waits, 99)}
+
+
+def served_auto(srv, eng, ds, queries) -> dict:
+    """Two served passes of phase 7a's request mix (less
+    ``AUTO_SMALL_ONLY``) through the auto server the turns warmed.  The
+    first keeps the default router knobs, as a user gets them, and
+    leaves out ``DEFAULT_KNOBS_CUT`` too: with batches of 32 and the
+    default ``router_probe_every`` of 32, every batch group crosses a
+    probe boundary and the router sends the whole batch to the losing
+    backend, which the pass measures.  The second turns the probes off.
+    Then the Prometheus page's router and tuner families are printed."""
+    out = {}
+    cfg = srv.engine.config
+    base = [n for n in queries if n not in AUTO_SMALL_ONLY]
+    for knobs, names in (("default", [n for n in base
+                                      if n not in DEFAULT_KNOBS_CUT]),
+                         ("probes_off", base)):
+        if knobs == "probes_off":
+            cfg.router_probe_every = 0
+        r = served_pass(srv, eng, ds, names)
+        log(f"  served through auto, {knobs} router knobs (probe every "
+            f"{cfg.router_probe_every}): {r['check']['requests']} requests "
+            f"({SERVE_INSTANCES} of each of {len(names)} templates), one "
+            f"flush in {r['check']['wall_s']:.1f} s, routed "
+            f"{json.dumps(r['routed'])} ({json.dumps(r['reasons'])}), "
+            f"eager share {r['eager_share']:.3f}, batch wall time a "
+            f"request saw p50 {r['batch_p50_ms']:.3f} ms, p99 "
+            f"{r['batch_p99_ms']:.3f} ms; every result equal to the torch "
+            f"engine's (multisets)")
+        out[knobs] = r
+    page = srv.metrics.prometheus().splitlines()
+    fams = [ln for ln in page if ln.startswith(("repro_router_",
+                                                "repro_tuner_"))
+            or ln.startswith(("# HELP repro_router_",
+                              "# HELP repro_tuner_"))]
+    if not any(ln.startswith("repro_router_ewma_ms") for ln in fams) or \
+            not any(ln.startswith("repro_tuner_shape_active")
+                    for ln in fams):
+        raise AssertionError("the Prometheus page lacks the router or "
+                             "tuner families")
+    for ln in fams:
+        log(f"    {ln[:200]}")
+    out["prometheus_lines"] = len(fams)
+    return out
 
 
 def main() -> int:
@@ -2311,6 +2614,25 @@ def main() -> int:
     ops.reset_launches()
     serve = phase_serve(args, ds, eng, queries, ops, here)
     serve_launches = dict(ops.launches)
+    stage(f"[8a] the adaptive runtime and the host engine at scale "
+          f"{args.scale}")
+    ops.reset_launches()
+    big = [n for n in queries if n not in AUTO_SMALL_ONLY]
+    adaptive = {"reduced": [
+        f"{', '.join(AUTO_SMALL_ONLY)} through auto and pt at "
+        f"{args.compare_scale}, not {args.scale}: on the host engine their "
+        f"joins take 254 s and 32 s a run at scale 340",
+        f"the served passes at {args.scale} leave out "
+        f"{', '.join(AUTO_SMALL_ONLY)} (an unwarmed template's first batch "
+        f"runs on eager)",
+        f"the served pass at {args.scale} with the default router knobs "
+        f"also leaves out {', '.join(DEFAULT_KNOBS_CUT)} (over 200 ms a "
+        f"request on eager, where each probe sends a whole batch of 32); "
+        f"the second pass, with the probes off, serves them"]}
+    adaptive[str(args.scale)] = phase_adaptive(
+        args, ds, eng, queries, ops, args.scale, big, big,
+        serve["layouts"][str(args.scale)]["p50_ms"], serve_mix=True)
+    adaptive["launches"] = dict(ops.launches)
     del ds, eng, queries, host_ext
     gc.collect()
     torch.cuda.empty_cache()
@@ -2338,6 +2660,19 @@ def main() -> int:
                              f"path: {serve_launches}")
     serve["launches"] = serve_launches
     log(f"  launches over phase 7 (7a and 7b): {serve_launches}")
+    stage(f"[8b] the adaptive runtime and the host engine at scale "
+          f"{args.compare_scale}")
+    ops.reset_launches()
+    adaptive[str(args.compare_scale)] = phase_adaptive(
+        args, ds, ds.engine(), queries, ops, args.compare_scale,
+        list(AUTO_SMALL_ONLY), list(queries),
+        serve["layouts"][str(args.compare_scale)]["p50_ms"],
+        serve_mix=False)
+    for k, v in ops.launches.items():
+        adaptive["launches"][k] += v
+    log(f"  launches over phase 8 (8a and 8b): {adaptive['launches']}")
+    for line in adaptive["reduced"]:
+        log(f"  reduced: {line}")
     del ds, queries
     gc.collect()
     torch.cuda.empty_cache()
@@ -2355,6 +2690,7 @@ def main() -> int:
         flush=True)
     print(json.dumps({"join_probe_path": probe_path}), flush=True)
     print(json.dumps({"phase7": serve}), flush=True)
+    print(json.dumps({"phase8": adaptive}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

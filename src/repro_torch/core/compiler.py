@@ -27,11 +27,18 @@ from repro_torch.core.algebra import (
 )
 from repro_torch.core.stats import Catalog
 
-__all__ = ["ScanStep", "Plan", "select_table", "compile_bgp",
-           "BGPSeg", "EmptySeg", "FilterSeg", "CombineSeg", "CorePlan",
+__all__ = ["DeviceUnsupported", "ScanStep", "Plan", "select_table",
+           "compile_bgp", "BGPSeg", "EmptySeg", "FilterSeg", "CombineSeg", "CorePlan",
            "compile_core", "core_filter_exprs", "seg_vars"]
 
 MISSING_TERM = -2
+
+
+class DeviceUnsupported(NotImplementedError):
+    """A template the device executors cannot express: a node kind
+    outside the device fragment, or numeric keys that defeat the
+    double-single encoding.  The device backends' one signal to prepare
+    the template on the host engine instead."""
 
 
 @dataclass
@@ -308,7 +315,7 @@ def compile_core(node: Node, catalog: Catalog,
     assignment over the pruned tree, so discarded subtrees contribute no
     scan steps, no capacities and no bounds rows.
 
-    Raises ``NotImplementedError`` for node kinds outside the device
+    Raises :class:`DeviceUnsupported` for node kinds outside the device
     fragment — the backends' fall-back-to-eager signal.
     """
 
@@ -345,7 +352,7 @@ def compile_core(node: Node, catalog: Catalog,
                 return EmptySeg(vars=lv + tuple(
                     v for v in seg_vars(right) if v not in lv))
             return CombineSeg(kind="union", left=left, right=right)
-        raise NotImplementedError(
+        raise DeviceUnsupported(
             f"device core does not cover {type(n).__name__}")
 
     root = build(node)

@@ -268,7 +268,7 @@ class DistributedExecutor:
         self._all_filters = tuple(core_filter_exprs(core.root)) + \
             tuple(self.spine.filters)
         self.filter_slots = filter_const_slots(self._all_filters)
-        # raises NotImplementedError only for dictionaries whose numeric
+        # raises DeviceUnsupported only for dictionaries whose numeric
         # keys defeat the double-single pairs
         self._value_keys = prepare_value_keys(catalog, self.spine,
                                               self._all_filters)

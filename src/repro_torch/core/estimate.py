@@ -28,8 +28,8 @@ and complex shapes.  This module is the ``planner="estimate"`` alternative
   subsets (left-deep join trees) up to ``DP_LIMIT`` patterns, greedy
   selection with cardinality propagation beyond it.  Like Algorithm 4,
   cross joins are admitted only when no remaining pattern is
-  join-connected, so enumerated orders stay inside the fragment both
-  executors (single device and distributed) already run.
+  join-connected, so enumerated orders stay inside the fragment every
+  backend (eager / torch / distributed) already executes.
 
 Estimation is *template-level*: placeholder constants count as bound
 terms but their values never enter a formula, so the order chosen at
@@ -41,11 +41,7 @@ Catalogs without distinct-count statistics (version-1 stores) make
 Algorithm-4 greedy order.
 
 A copy of the reference package's module: the same formulas and
-tiebreaks give the same orders on the same catalog.  Its
-``actual_cardinalities`` joins on the host as the reference's eager
-executor does; the port keeps its own copy of that scan and join
-(:func:`_scan_step`, :func:`_natural_join`), which read the catalog's
-host tables (in memory or memory-mapped) and never a device tensor.
+tiebreaks give the same orders on the same catalog.
 """
 
 from __future__ import annotations
@@ -53,10 +49,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from repro_torch.core.algebra import is_var, tp_vars
-from repro_torch.rdf.dictionary import UNBOUND
 
 __all__ = ["DP_LIMIT", "StepEstimate", "supports", "scan_estimate",
            "estimate_order", "order_steps", "actual_cardinalities"]
@@ -263,120 +256,11 @@ def actual_cardinalities(steps: Sequence, catalog) -> Optional[List[int]]:
     and join the steps left-to-right on the host, recording each
     intermediate row count (``Engine.explain``'s estimated-vs-actual
     column).  Diagnostics only — runs the actual joins."""
+    from repro_torch.core.executor import natural_join, scan_step
     out: List[int] = []
     acc = None
     for step in steps:
-        b = _scan_step(step, catalog)
-        acc = b if acc is None else _natural_join(acc, b)
-        out.append(int(len(acc[1])))
+        b = scan_step(step, catalog)
+        acc = b if acc is None else natural_join(acc, b)
+        out.append(int(len(acc.data)))
     return out
-
-
-# ---------------------------------------------------------------------------
-# Host scan and sort-merge join (the reference eager executor's, for
-# ``actual_cardinalities``).  A relation is ``(cols, rows)``: a tuple of
-# variable names and an int32 (n, len(cols)) array.
-# ---------------------------------------------------------------------------
-
-def _relation(cols, rows: np.ndarray):
-    rows = np.asarray(rows, dtype=np.int32)
-    return tuple(cols), rows.reshape(rows.shape[0], len(cols))
-
-
-def _scan_step(step, catalog):
-    """Materialize one triple pattern from its selected table."""
-    tp = step.tp
-    if step.uses_tt:
-        return _scan_tt(tp, catalog)
-    table = catalog.table(step.kind, int(tp.p), step.p2)
-    if table is None:
-        cols: List[str] = []
-        for v in (tp.s, tp.o):
-            if is_var(v) and v not in cols:
-                cols.append(v)
-        return _relation(cols, np.empty((0, len(cols)), np.int32))
-    rows = np.asarray(table.rows)
-    mask = np.ones(len(rows), dtype=bool)
-    if not is_var(tp.s):
-        mask &= rows[:, 0] == int(tp.s)
-    if not is_var(tp.o):
-        mask &= rows[:, 1] == int(tp.o)
-    if is_var(tp.s) and is_var(tp.o) and tp.s == tp.o:
-        mask &= rows[:, 0] == rows[:, 1]
-    rows = rows[mask]
-    cols, take = [], []
-    if is_var(tp.s):
-        cols.append(tp.s)
-        take.append(0)
-    if is_var(tp.o) and tp.o not in cols:
-        cols.append(tp.o)
-        take.append(1)
-    return _relation(cols, rows[:, take])
-
-
-def _scan_tt(tp, catalog):
-    tt = np.asarray(catalog.tt)
-    mask = np.ones(len(tt), dtype=bool)
-    for pos, term in ((0, tp.s), (1, tp.p), (2, tp.o)):
-        if not is_var(term):
-            mask &= tt[:, pos] == int(term)
-    rows = tt[mask]
-    cols: List[str] = []
-    take: List[int] = []
-    for pos, term in ((0, tp.s), (1, tp.p), (2, tp.o)):
-        if is_var(term):
-            if term in cols:  # repeated variable: equality selection
-                rows = rows[rows[:, pos] == rows[:, take[cols.index(term)]]]
-            else:
-                cols.append(term)
-                take.append(pos)
-    return _relation(cols, rows[:, take])
-
-
-def _pack_keys(cols, rows: np.ndarray, shared, null_code: int) -> np.ndarray:
-    """int64 join key per row; rows with any UNBOUND key -> unmatchable."""
-    c0 = rows[:, cols.index(shared[0])].astype(np.int64)
-    if len(shared) == 1:
-        key, isnull = c0, c0 == UNBOUND
-    else:
-        c1 = rows[:, cols.index(shared[1])].astype(np.int64)
-        key = c0 * np.int64(2**31) + c1
-        isnull = (c0 == UNBOUND) | (c1 == UNBOUND)
-    return np.where(isnull, np.int64(null_code), key)
-
-
-def _natural_join(a, b):
-    """Sort-merge natural join (cross product when nothing is shared)."""
-    (acols, adata), (bcols, bdata) = a, b
-    shared = [c for c in acols if c in bcols]
-    b_only = [c for c in bcols if c not in acols]
-    out_cols = acols + tuple(b_only)
-    if not shared:
-        left = np.repeat(adata, len(bdata), axis=0)
-        right = np.tile(bdata, (len(adata), 1))
-        return _relation(acols + bcols, np.concatenate([left, right], axis=1))
-    key_cols = shared[:2]
-    ka = _pack_keys(acols, adata, key_cols, null_code=-3)
-    kb = _pack_keys(bcols, bdata, key_cols, null_code=-5)
-    order_b = np.argsort(kb, kind="stable")
-    kb_sorted = kb[order_b]
-    lo = np.searchsorted(kb_sorted, ka, side="left")
-    hi = np.searchsorted(kb_sorted, ka, side="right")
-    cnt = (hi - lo).astype(np.int64)
-    total = int(cnt.sum())
-    a_idx = np.repeat(np.arange(len(adata)), cnt)
-    starts = np.repeat(lo, cnt)
-    prefix = np.cumsum(cnt) - cnt
-    offs = np.arange(total, dtype=np.int64) - np.repeat(prefix, cnt)
-    b_idx = order_b[starts + offs]
-    left, right = adata[a_idx], bdata[b_idx]
-    keep = np.ones(total, dtype=bool)
-    for c in shared[2:]:
-        va = left[:, acols.index(c)]
-        vb = right[:, bcols.index(c)]
-        keep &= (va == vb) & (va != UNBOUND)
-    if not keep.all():
-        left, right = left[keep], right[keep]
-    right_extra = right[:, [bcols.index(c) for c in b_only]] if b_only \
-        else np.empty((left.shape[0], 0), dtype=np.int32)
-    return _relation(out_cols, np.concatenate([left, right_extra], axis=1))

@@ -37,8 +37,8 @@ import torch
 
 from repro_torch.core.algebra import BoolOp, Bound, Cmp, FilterExpr, NotExpr, is_var
 from repro_torch.core.compiler import (
-    BGPSeg, CombineSeg, CorePlan, CoreSeg, EmptySeg, FilterSeg, Plan,
-    ScanStep, core_filter_exprs,
+    BGPSeg, CombineSeg, CorePlan, CoreSeg, DeviceUnsupported, EmptySeg,
+    FilterSeg, Plan, ScanStep, core_filter_exprs,
 )
 from repro_torch.core.modifiers import ModifierSpine, filter_const_slots
 from repro_torch.core.stats import Catalog
@@ -72,7 +72,7 @@ _I32 = torch.int32
 # order-equivalent to the float64 comparison whenever the pair mapping is
 # injective over the values actually compared.  That injectivity is
 # checked ONCE on the host; tables that defeat it raise
-# NotImplementedError.
+# DeviceUnsupported.
 # ---------------------------------------------------------------------------
 
 def _split_f64(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -94,7 +94,7 @@ def _check_pair_injective(vals: np.ndarray, what: str) -> None:
         return
     hi, lo = _split_f64(u)
     if not np.all((np.diff(hi) != 0) | (np.diff(lo) != 0)):
-        raise NotImplementedError(
+        raise DeviceUnsupported(
             f"{what} is not double-single distinguishable; numeric "
             "modifiers would diverge from the host engines")
 
@@ -104,7 +104,7 @@ def numeric_value_keys(dictionary) -> np.ndarray:
     ``[cmp_hi, cmp_lo, ord_hi, ord_lo]`` per term id.  The cmp pair is
     NaN for non-numeric terms (comparisons drop those rows); the ord pair
     falls back to the term id (the host ``order_rows`` key).  Cached on
-    the dictionary; raises NotImplementedError when the pair encoding
+    the dictionary; raises DeviceUnsupported when the pair encoding
     cannot distinguish the table's keys."""
     if dictionary is None:
         return np.empty((0, 4), dtype=np.float32)
@@ -870,7 +870,7 @@ class PlanExecutor:
         self._all_filters = tuple(self._core_filters) + \
             tuple(self.spine.filters)
         self.filter_slots = filter_const_slots(self._all_filters)
-        # raises NotImplementedError only for dictionaries whose numeric
+        # raises DeviceUnsupported only for dictionaries whose numeric
         # keys defeat the double-single pairs
         self._value_keys = prepare_value_keys(catalog, self.spine,
                                               self._all_filters)

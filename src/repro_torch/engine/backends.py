@@ -7,14 +7,27 @@ prepared query runs any constant instantiation via a
 :class:`~repro_torch.engine.template.ConstantBinding` without
 re-parsing or re-compiling.
 
-This package has two backends: ``"torch"``, the static-capacity
-executor of :mod:`repro_torch.core.jexec` on the engine's device, and
-``"distributed"``, the executor of :mod:`repro_torch.core.distributed`
-over the ranks of a ``torch.distributed`` process group.  Both compile
-for the ``"extvp"``, ``"vp"`` and ``"tt"`` layouts.  Neither has a host
-engine to fall back on, so a template they cannot serve (the host-only
-``"pt"`` layout, a dictionary whose numeric keys defeat the
-double-single encoding) raises NotImplementedError at prepare time.
+Three backends:
+
+* ``"eager"`` — the host numpy engine (:mod:`repro_torch.core.executor`,
+  exact dynamic shapes), which serves every layout including the
+  property table (``"pt"``, :mod:`repro_torch.core.pt`);
+* ``"torch"`` — the static-capacity executor of
+  :mod:`repro_torch.core.jexec` on the engine's device;
+* ``"distributed"`` — the executor of :mod:`repro_torch.core.distributed`
+  over the ranks of a ``torch.distributed`` process group.
+
+The two device backends compile for the ``"extvp"``, ``"vp"`` and
+``"tt"`` layouts.  A template they cannot express — the host-only
+``"pt"`` layout, a node kind outside the device fragment, or a
+dictionary whose numeric keys defeat the double-single encoding
+(``compile_core`` or the executor raises
+:class:`~repro_torch.core.compiler.DeviceUnsupported`) — is prepared on
+the eager engine instead and
+flagged (``PreparedQuery.fallback``), so the Engine counts every request
+it serves (``device_fallbacks``).  Those two causes are the only ones:
+the fallback is decided at prepare time, and any other error — a CUDA
+error, a kernel that fails to build or load — propagates.
 
 A sampled request's :class:`~repro_torch.obs.tracer.TraceContext`
 rides along by argument (``run(binding, trace)``): the prepared query
@@ -30,30 +43,55 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.compiler import Plan, compile_core
+from repro_torch.core.algebra import BGP
+from repro_torch.core.compiler import (
+    DeviceUnsupported, Plan, compile_bgp, compile_core,
+)
 from repro_torch.core.distributed import DistributedExecutor
+from repro_torch.core.executor import (
+    Bindings, apply_spine_host, execute, execute_plan,
+)
 from repro_torch.core.jexec import PlanExecutor
-from repro_torch.core.modifiers import peel_spine
+from repro_torch.core.modifiers import peel_spine, substitute_spine
 from repro_torch.core.stats import Catalog
 from repro_torch.device import resolve_device
-from repro_torch.engine.result import Bindings, Result
+from repro_torch.engine.result import Result
 from repro_torch.engine.template import (
-    ConstantBinding, QueryTemplate, node_vars, rebind_plan,
+    ConstantBinding, QueryTemplate, node_vars, rebind_plan, substitute_query,
 )
+from repro_torch.kernels.build import KernelBuildError
+from repro_torch.kernels.ops import KernelLaunchError
 
-__all__ = ["ExecutionContext", "PreparedQuery", "TorchBackend",
-           "DistributedBackend"]
+__all__ = ["ExecutionContext", "PreparedQuery", "EagerBackend",
+           "TorchBackend", "DistributedBackend", "is_device_error"]
 
 _NO_BINDING = ConstantBinding(mapping={}, missing=False)
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """Whether ``exc`` is a fault of the card or of a kernel — a CUDA
+    error (out of memory included) or a kernel that cannot be built or
+    loaded — rather than a template the device path cannot express.
+    Such errors always propagate: they never become a host fallback or
+    a routing exclusion.  Decided by type: a kernel's own launch error
+    (:class:`~repro_torch.kernels.ops.KernelLaunchError`), a build or
+    load error, and torch's CUDA errors (``torch.AcceleratorError``
+    where this torch has it)."""
+    kinds = (KernelBuildError, KernelLaunchError, torch.OutOfMemoryError,
+             torch.cuda.CudaError)
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None:
+        kinds += (accel,)
+    return isinstance(exc, kinds)
 
 
 @dataclass
 class ExecutionContext:
     """Everything a backend needs to prepare and run queries.  ``layout``
     is the storage schema plans compile for (``"extvp"``, ``"vp"``,
-    ``"tt"``); ``device`` ``None`` means ``"cuda"``; ``group`` is the
-    ``torch.distributed`` process group of the distributed backend
-    (``None``: the default group)."""
+    ``"tt"``, or ``"pt"`` on the host engine); ``device`` ``None`` means
+    ``"cuda"``; ``group`` is the ``torch.distributed`` process group of
+    the distributed backend (``None``: the default group)."""
 
     catalog: Catalog
     dictionary: object = None            # Optional[repro_torch.rdf.Dictionary]
@@ -70,9 +108,13 @@ class ExecutionContext:
 
 
 class PreparedQuery:
-    """A template compiled for the backend; run any instantiation of it."""
+    """A template compiled for a backend; run any instantiation of it."""
 
     backend: str = "torch"
+    #: True when a device backend could not compile the template and
+    #: prepared it on the eager host engine — the Engine counts these per
+    #: request (``device_fallbacks``), so host execution is observable
+    fallback: bool = False
 
     def __init__(self, template: QueryTemplate, ctx: ExecutionContext):
         self.template = template
@@ -119,12 +161,66 @@ class _EmptyPrepared(PreparedQuery):
         return self._empty()
 
 
+class _EagerPrepared(PreparedQuery):
+    """Host numpy engine.  Queries whose modifier spine sits on a BGP
+    core cache the compiled plan + spine and re-bind scan/filter
+    constants by id substitution; other operator trees
+    (OPTIONAL/UNION/...) cache the parsed tree and re-bind through
+    ``substitute_query``."""
+
+    backend = "eager"
+
+    def __init__(self, template, ctx, fallback: bool = False):
+        super().__init__(template, ctx)
+        self.fallback = fallback
+        self.plan: Optional[Plan] = None
+        self.spine = None
+        core, spine = peel_spine(self.query)
+        if isinstance(core, BGP) and ctx.layout != "pt":
+            self.plan = compile_bgp(core, ctx.catalog, ctx.layout,
+                                    ctx.planner)
+            self.spine = spine
+
+    def run(self, binding: Optional[ConstantBinding] = None,
+            trace=None) -> Result:
+        binding = binding or _NO_BINDING
+        if binding.missing:
+            return self._empty()
+        sid = trace.start("host.execute", backend="eager") \
+            if trace is not None else None
+        if self.plan is not None:
+            if self.plan.empty:
+                if trace is not None:
+                    trace.end(sid, rows=0, short_circuit=True)
+                return self._empty()
+            plan = rebind_plan(self.plan, binding.mapping)
+            spine = substitute_spine(self.spine, binding.mapping)
+            b = apply_spine_host(execute_plan(plan, self.ctx.catalog), spine,
+                                 self.ctx.catalog)
+            res = Result(b, self.ctx.dictionary)
+        else:
+            query = substitute_query(self.query, binding.mapping)
+            res = Result(execute(query, self.ctx.catalog,
+                                 layout=self.ctx.layout),
+                         self.ctx.dictionary)
+        if trace is not None:
+            trace.end(sid, rows=len(res))
+        return res
+
+
 class _VectorizedPrepared(PreparedQuery):
     """The device path: the executor's ``bounds`` input carries the bound
     constants.  ``run`` feeds one bounds vector; ``run_batch`` feeds B of
-    them to one batched launch.  Missing-constant bindings (S2RDF's
-    statistics-only empty answer) are answered on the host and never
-    occupy a batch slot."""
+    them to one ``executor.run_batch`` call.  Missing-constant bindings
+    (S2RDF's statistics-only empty answer) are answered on the host and
+    never occupy a batch slot.
+
+    The batch is not one launch: the executors hoist a batch's shared
+    scans and run each binding's own work in turn, so a batch costs about
+    B queries.  The Engine therefore pads nothing and the batch-shape
+    tuner observes none of these calls — the reference's rule for a
+    sequential ``run_batch``.  The tuner's menu starts to move once a
+    batch becomes one launch."""
 
     def __init__(self, template, ctx, executor):
         super().__init__(template, ctx)
@@ -183,28 +279,41 @@ class _VectorizedPrepared(PreparedQuery):
         return results
 
 
+class EagerBackend:
+    """The host numpy engine: every template, every layout."""
+
+    name = "eager"
+
+    def prepare(self, template: QueryTemplate,
+                ctx: ExecutionContext) -> PreparedQuery:
+        return _EagerPrepared(template, ctx)
+
+
 class TorchBackend:
     """The full graph-pattern fragment — BGP/FILTER/OPTIONAL/UNION cores
     plus unbound-predicate (triples-table) scans, under any modifier
     spine (see :func:`repro_torch.core.modifiers.peel_spine`) — compiles
     via :func:`repro_torch.core.compiler.compile_core` into one
-    :class:`~repro_torch.core.jexec.PlanExecutor` per template."""
+    :class:`~repro_torch.core.jexec.PlanExecutor` per template.  The
+    host-only ``pt`` layout, and a :class:`DeviceUnsupported` from
+    ``compile_core`` or from building the executor (numeric keys that
+    defeat the double-single encoding), prepare a flagged eager
+    fallback; every other error propagates."""
 
     name = "torch"
 
     def prepare(self, template: QueryTemplate,
                 ctx: ExecutionContext) -> PreparedQuery:
         if ctx.layout == "pt":
-            # the reference serves the property table on its host engine;
-            # the port has none yet
-            raise NotImplementedError(
-                "the 'pt' layout runs on a host engine, which the port "
-                "does not have")
+            return _EagerPrepared(template, ctx, fallback=True)
         core, spine = peel_spine(template.query)
-        cp = compile_core(core, ctx.catalog, ctx.layout, ctx.planner)
-        if cp.empty:
-            return _EmptyPrepared(template, ctx, self.name)
-        return self._prepared(template, ctx, cp, spine)
+        try:
+            cp = compile_core(core, ctx.catalog, ctx.layout, ctx.planner)
+            if cp.empty:
+                return _EmptyPrepared(template, ctx, self.name)
+            return self._prepared(template, ctx, cp, spine)
+        except DeviceUnsupported:
+            return _EagerPrepared(template, ctx, fallback=True)
 
     def _prepared(self, template, ctx, cp, spine) -> PreparedQuery:
         ex = PlanExecutor(cp, ctx.catalog, spine=spine, device=ctx.device)
@@ -221,7 +330,8 @@ class _DistributedPrepared(_VectorizedPrepared):
 
 
 class DistributedBackend(TorchBackend):
-    """The fragment of :class:`TorchBackend`, compiled into one
+    """The fragment of :class:`TorchBackend` (and its eager fallbacks),
+    compiled into one
     :class:`~repro_torch.core.distributed.DistributedExecutor` per
     template over ``ctx.group``.  ``dual_partition`` adds an
     object-partitioned copy of every table, so object-keyed probes skip

@@ -299,14 +299,20 @@ class Dataset:
     def engine(self, backend: str = "torch", device=None,
                layout: str = "extvp", planner: Optional[str] = None,
                plan_cache_size: int = 512, group=None,
-               dual_partition: bool = False, runtime=None) -> Engine:
-        """An :class:`Engine` over this dataset.  ``device=None`` means
-        the dataset's device, ``group=None`` the dataset's group (of the
-        ``"distributed"`` backend); ``layout`` is the storage schema
-        (``"extvp"``, ``"vp"``, ``"tt"``); ``planner=None`` reads the
-        planner from ``runtime`` (a
+               dual_partition: bool = False, batch_shapes=None,
+               runtime=None) -> Engine:
+        """An :class:`Engine` over this dataset.  ``backend`` is
+        ``"eager"``, ``"torch"``, ``"distributed"`` or ``"auto"`` (the
+        adaptive runtime: each template measured on every candidate
+        backend and routed to the observed winner; the distributed
+        backend is a candidate when a group is given).  ``device=None``
+        means the dataset's device, ``group=None`` the dataset's group
+        (of the ``"distributed"`` backend); ``layout`` is the storage
+        schema (``"extvp"``, ``"vp"``, ``"tt"``, ``"pt"``);
+        ``planner=None`` reads the planner from ``runtime`` (a
         :class:`~repro_torch.runtime.RuntimeConfig`, ``None`` meaning the
-        process-wide default).
+        process-wide default), ``batch_shapes=None`` the batch-shape
+        menu.
 
         Engines on the default config are cached per configuration, so
         repeated calls share plan caches.  An engine given its own
@@ -315,13 +321,14 @@ class Dataset:
         dev = resolve_device(self.device if device is None else device)
         group = self.group if group is None else group
         key = (backend, str(dev), layout, planner, plan_cache_size,
-               id(group), dual_partition)
+               id(group), dual_partition,
+               None if batch_shapes is None else tuple(batch_shapes))
         eng = None if runtime is not None else self._engines.get(key)
         if eng is None:
             eng = Engine(self, backend=backend, device=dev, layout=layout,
                          planner=planner, plan_cache_size=plan_cache_size,
                          group=group, dual_partition=dual_partition,
-                         runtime=runtime)
+                         batch_shapes=batch_shapes, runtime=runtime)
             if runtime is None:
                 self._engines[key] = eng
         return eng

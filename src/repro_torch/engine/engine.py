@@ -1,4 +1,4 @@
-"""The query engine: template LRU cache over the torch backend.
+"""The query engine: template LRU cache + backend dispatch.
 
 ``Engine`` is the public execution surface.  It owns
 
@@ -10,17 +10,26 @@
   compilation: its constants re-bind as runtime inputs;
 * the statistics short-circuit (provably-empty plans and constants
   missing from the dictionary are answered without touching data);
+* the **adaptive runtime** (``backend="auto"``): a per-template
+  :class:`~repro_torch.runtime.router.BackendRouter` that measures
+  eager / torch / distributed latency and routes each signature to its
+  observed winner, and a :class:`~repro_torch.runtime.tuner.BatchTuner`
+  over the batch-shape menu;
 * ``query_batch``: same-template requests grouped by signature and run
-  through one batched launch per chunk of at most ``MAX_BATCH``;
+  through one ``run_batch`` call per chunk of at most the tuner's
+  largest active shape;
 * operator metrics (:class:`ServerMetrics`): latency and queue
-  histograms, plan-cache hit rate, empty answers, rows served, batches,
-  the Prometheus exposition;
+  histograms, plan-cache hit rate, empty answers, host fallbacks, rows
+  served, batches, per-backend routing counts, the Prometheus
+  exposition;
 * span tracing (:mod:`repro_torch.obs`), inert until the runtime
   config's ``trace_sample_rate`` is above 0, and ``explain()``.
 
-Two backends: ``"torch"`` runs on one device, ``"distributed"`` on
-every rank of a ``torch.distributed`` process group (each rank builds
-the same engine and sends the same queries in the same order).
+Backends: ``"eager"`` on the host, ``"torch"`` on one device,
+``"distributed"`` on every rank of a ``torch.distributed`` process group
+(each rank builds the same engine and sends the same queries in the same
+order), or ``"auto"`` over the first two (and the third when a ``group``
+is given).
 
 S2RDF notes that repeated Virtuoso queries benefit from caching while its
 own runtimes are stable: here we cache *compilation*, never results.
@@ -30,15 +39,17 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.core.algebra import BGP
 from repro_torch.core.modifiers import peel_spine
 from repro_torch.device import resolve_device
 from repro_torch.engine.backends import (
-    DistributedBackend, ExecutionContext, PreparedQuery, TorchBackend,
+    DistributedBackend, EagerBackend, ExecutionContext, PreparedQuery,
+    TorchBackend, is_device_error,
 )
 from repro_torch.engine.result import Result
 from repro_torch.engine.template import (
@@ -46,16 +57,21 @@ from repro_torch.engine.template import (
 )
 from repro_torch.obs import LogHistogram, Tracer
 from repro_torch.obs.tracer import TraceContext
-from repro_torch.runtime import RuntimeConfig
+from repro_torch.runtime import BackendRouter, BatchTuner, RouteDecision, \
+    RuntimeConfig
 from repro_torch.runtime.config import runtime_config as _global_runtime_config
 
 __all__ = ["Engine", "ServerMetrics", "PlanCache", "resolve_device",
-           "LAYOUTS"]
+           "LAYOUTS", "BACKENDS"]
 
 #: storage schemas a plan can compile for (paper §4); ``"pt"`` (the
-#: property table) runs on a host engine the port does not have, so its
-#: templates raise NotImplementedError and count as device fallbacks
+#: property table) runs on the host engine, so on a device backend its
+#: templates are served through a flagged eager fallback
 LAYOUTS = ("extvp", "vp", "tt", "pt")
+#: backend names ``Engine`` takes; ``"auto"`` routes each template
+#: signature among ``"eager"``, ``"torch"`` (and ``"distributed"`` when
+#: a group is given) by measured latency
+BACKENDS = ("eager", "torch", "distributed", "auto")
 
 # cardinality-drift reports cached per (prepared, binding): a hot
 # template's repeated traces must not re-run the host joins every time
@@ -74,20 +90,25 @@ class ServerMetrics:
     rows: int = 0
     empties: int = 0          # zero-row answers, however produced
     short_circuits: int = 0   # answered from statistics alone (no data touched)
-    # templates the device path cannot serve (the request raised): the
-    # reference would serve them on its host engine
+    # requests served through an eager fallback on a device backend (the
+    # prepared query's ``fallback`` flag): host execution stays visible
     device_fallbacks: int = 0
     plan_hits: int = 0
     plan_misses: int = 0
     # micro-batching: one "batch" is one run_batch call serving B requests
     batches: int = 0          # batched launches executed
     batched_requests: int = 0 # requests served through a batched launch
-    # slots wasted padding up to a static shape: always 0 here, since
-    # the executor runs each binding of a batch in turn and nothing pads
+    # slots wasted padding up to a static shape (only a batch that is one
+    # launch is padded; the port's executors run a batch in turn, so 0)
     padding_slots: int = 0
-    # requests per backend executed on (one key on a static engine)
+    # adaptive runtime: requests per backend actually executed on (on a
+    # static engine this is all one key; under "auto" it shows the mix)
     routed: Dict[str, int] = field(default_factory=dict)
 
+    # Snapshot provider attached by the owning Engine — lets anything
+    # holding the metrics object (SparqlServer, the Prometheus renderer)
+    # pull the router/tuner state without a reference to the engine.
+    runtime_report_fn = None
     # Attached by the owning Engine: lets the Prometheus renderer expose
     # per-stage span histograms without a reference to the engine.
     tracer: Optional[Tracer] = None
@@ -105,6 +126,12 @@ class ServerMetrics:
 
     def record_queue(self, ms: float) -> None:
         self.queue_hist.record(ms)
+
+    def runtime_report(self) -> Dict[str, object]:
+        """The owning engine's router/tuner snapshot (empty when the
+        metrics object is not attached to an engine)."""
+        fn = self.runtime_report_fn
+        return fn() if fn is not None else {}
 
     def summary(self) -> Dict[str, object]:
         """Operator summary.  Percentiles are ``None`` (not a fabricated
@@ -135,8 +162,8 @@ class ServerMetrics:
 
     def prometheus(self) -> str:
         """This metrics object in the Prometheus text exposition format
-        (counters, latency/queue/per-stage histograms) — see
-        :mod:`repro_torch.obs.prometheus`."""
+        (counters, latency/queue/per-stage histograms, router and tuner
+        gauges) — see :mod:`repro_torch.obs.prometheus`."""
         from repro_torch.obs.prometheus import render
         return render(self)
 
@@ -172,52 +199,69 @@ class PlanCache:
         return self._data.keys()
 
 
+
+
 class Engine:
-    """Execute SPARQL text over a Dataset.
+    """Execute SPARQL text over a Dataset through one backend — or
+    through the adaptive runtime.
 
-    ``backend`` is ``"torch"`` (one device) or ``"distributed"`` (the
-    ranks of the process group ``group``, ``None`` meaning the default
-    group, which must be initialized; ``dual_partition`` adds the
-    object-partitioned table copies); ``device`` is where this process's
-    executors run — ``None`` means ``"cuda"``.  ``layout`` is the storage
-    schema plans compile for (:data:`LAYOUTS`).  ``runtime`` is the
-    :class:`~repro_torch.runtime.RuntimeConfig` (``None``: the
+    ``backend`` is ``"eager"`` (the host numpy engine), ``"torch"`` (one
+    device), ``"distributed"`` (the ranks of the process group
+    ``group``, ``None`` meaning the default group, which must be
+    initialized; ``dual_partition`` adds the object-partitioned table
+    copies), or ``"auto"``: the engine then prepares templates on every
+    candidate backend (eager + torch, plus distributed when ``group`` is
+    given) and a :class:`~repro_torch.runtime.BackendRouter` routes each
+    template signature to its measured-latency winner (warmup → exploit
+    → periodic probe; knobs on ``runtime``).  ``device`` is where this
+    process's executors run — ``None`` means ``"cuda"``.  ``layout`` is
+    the storage schema plans compile for (:data:`LAYOUTS`).  ``runtime``
+    is the :class:`~repro_torch.runtime.RuntimeConfig` (``None``: the
     process-wide default) whose knobs and clock the engine reads;
-    ``planner``, when given, overrides ``runtime.planner``.
-    """
+    ``planner``, when given, overrides ``runtime.planner``;
+    ``batch_shapes``, when given, overrides ``runtime.batch_shapes``.
 
-    #: Most requests of one template in one batched launch.  Nothing is
-    #: padded: the executor runs each binding of a launch in turn, so a
-    #: padded slot would cost a whole query and buy no fixed shape.
-    MAX_BATCH: int = 32
+    Under ``"auto"`` on a process group every rank must route a request
+    to the same backend, or the distributed seat's collectives go
+    unpaired: each measured latency is max-reduced over the group before
+    the router and the tuner see it, so every rank makes the same
+    decisions from the same numbers.
+    """
 
     def __init__(self, dataset, backend: str = "torch", device=None,
                  layout: str = "extvp", planner: Optional[str] = None,
                  plan_cache_size: int = 512, group=None,
                  dual_partition: bool = False,
+                 batch_shapes: Optional[Sequence[int]] = None,
                  runtime: Optional[RuntimeConfig] = None):
-        names = [TorchBackend.name, DistributedBackend.name]
-        if backend not in names:
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; available: "
-                             f"{names}")
+                             f"{list(BACKENDS)}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; available: "
                              f"{list(LAYOUTS)}")
         if planner not in (None, "greedy", "estimate"):
             raise ValueError(f"unknown planner {planner!r}; expected "
                              "'greedy' or 'estimate'")
-        if backend == DistributedBackend.name:
-            if not dist.is_available() or not dist.is_initialized():
-                raise ValueError(
-                    "the distributed backend needs an initialized process "
-                    "group: call torch.distributed.init_process_group(...) "
-                    "first (nccl on the card, gloo on the CPU)")
-            self._backend = DistributedBackend(dual_partition)
-        elif dual_partition:
+        if backend == "auto":
+            names = ["eager", "torch"] + \
+                (["distributed"] if group is not None else [])
+        else:
+            names = [backend]
+        if dual_partition and "distributed" not in names:
             raise ValueError("dual_partition applies to the distributed "
                              "backend only")
-        else:
-            self._backend = TorchBackend()
+        if "distributed" in names and \
+                (not dist.is_available() or not dist.is_initialized()):
+            raise ValueError(
+                "the distributed backend needs an initialized process "
+                "group: call torch.distributed.init_process_group(...) "
+                "first (nccl on the card, gloo on the CPU)")
+        factories = {"eager": EagerBackend, "torch": TorchBackend,
+                     "distributed": lambda: DistributedBackend(
+                         dual_partition)}
+        self._backends = {n: factories[n]() for n in names}
+        self.auto = backend == "auto"
         self.device = resolve_device(device)
         # engines without an explicit runtime= share the process-wide
         # default instance
@@ -226,22 +270,40 @@ class Engine:
         self._planner_override = planner
         self.dataset = dataset
         self.layout = layout
+        self.group = group
         self.ctx = ExecutionContext(catalog=dataset.catalog,
                                     dictionary=dataset.dictionary,
                                     layout=layout, planner=self.planner,
                                     device=self.device, group=group)
         self.cache = PlanCache(plan_cache_size)
         self.metrics = ServerMetrics()
+        self.metrics.runtime_report_fn = self.runtime_report
         #: span tracing (repro_torch.obs) — inert until the config's
         #: ``trace_sample_rate`` knob is > 0 (the hot path's only cost is
         #: the ``tracer.active`` guard)
         self.tracer = Tracer(self.config)
         self.metrics.tracer = self.tracer
         self._drift_cache: "OrderedDict" = OrderedDict()
+        shapes = self.config.batch_shapes if batch_shapes is None \
+            else tuple(batch_shapes)
+        if not shapes or min(shapes) < 1:
+            raise ValueError("batch_shapes must be positive ints")
+        self.batch_shapes: Tuple[int, ...] = tuple(sorted(shapes))
+        self.router = BackendRouter(tuple(self._backends), self.config)
+        self.tuner = BatchTuner(self.batch_shapes, self.config)
+        # ranks route alike only on the same latencies (class docstring)
+        self._agree = self.auto and "distributed" in self._backends
 
     @property
     def backend(self) -> str:
-        return self._backend.name
+        if self.auto:
+            return "auto"
+        return next(iter(self._backends))
+
+    @property
+    def backends(self) -> Tuple[str, ...]:
+        """The backends this engine may run a request on."""
+        return tuple(self._backends)
 
     @property
     def planner(self) -> str:
@@ -253,21 +315,26 @@ class Engine:
         return self.config.planner
 
     # -- compilation ----------------------------------------------------------
-    def _cache_key(self, sig: str) -> str:
-        # plans compiled under different join-order planners are
-        # different artifacts and must never shadow each other
+    def _cache_key(self, bname: str, sig: str) -> str:
+        # static engines key on the bare signature; auto engines hold one
+        # prepared query per (backend, signature).  Plans compiled under
+        # different join-order planners are different artifacts and must
+        # never shadow each other.
+        key = sig if not self.auto else f"{bname}::{sig}"
         planner = self.planner
-        return sig if planner == "greedy" else f"planner={planner}::{sig}"
+        return key if planner == "greedy" else f"planner={planner}::{key}"
 
-    def _lookup(self, qtext: str, sig: str) -> Optional[PreparedQuery]:
-        prepared = self.cache.get(self._cache_key(sig))
+    def _lookup(self, bname: str, qtext: str, sig: str
+                ) -> Optional[PreparedQuery]:
+        prepared = self.cache.get(self._cache_key(bname, sig))
         if prepared is not None:
             return prepared
         # Non-rebindable templates (e.g. a constant in predicate position)
         # are cached under the exact normalized text instead.
-        return self.cache.get(self._cache_key("=" + _normalize(qtext)))
+        return self.cache.get(self._cache_key(bname,
+                                              "=" + _normalize(qtext)))
 
-    def _build(self, qtext: str, sig: str,
+    def _build(self, bname: str, qtext: str, sig: str,
                trace: Optional[TraceContext] = None) -> PreparedQuery:
         self.ctx.planner = self.planner
         sid = trace.start("parse") if trace is not None else None
@@ -281,55 +348,126 @@ class Engine:
             template = QueryTemplate.concrete(qtext, self.ctx.dictionary)
         if trace is not None:
             trace.end(sid, rebindable=template.rebindable)
-            sid = trace.start("plan", backend=self.backend,
-                              planner=self.planner)
-        try:
-            prepared = self._backend.prepare(template, self.ctx)
-        except NotImplementedError:
-            # the reference would serve this template on its host engine;
-            # the port has none, so the request fails and is counted
-            self.metrics.device_fallbacks += 1
-            raise
+            sid = trace.start("plan", backend=bname, planner=self.planner)
+        prepared = self._backends[bname].prepare(template, self.ctx)
         if trace is not None:
-            trace.end(sid, fallback=False)
+            trace.end(sid, fallback=prepared.fallback)
         key = sig if template.rebindable else "=" + _normalize(qtext)
-        self.cache.put(self._cache_key(key), prepared)
+        self.cache.put(self._cache_key(bname, key), prepared)
         return prepared
 
-    def _prepared_for(self, qtext: str, sig: str, counted: bool = False,
+    def _prepared_for(self, bname: str, qtext: str, sig: str,
+                      counted: bool = False,
                       trace: Optional[TraceContext] = None
                       ) -> PreparedQuery:
-        prepared = self._lookup(qtext, sig)
+        prepared = self._lookup(bname, qtext, sig)
         if prepared is not None:
             if counted:
                 self.metrics.plan_hits += 1
             if trace is not None:
-                trace.event("plan_cache", outcome="hit",
-                            backend=self.backend)
+                trace.event("plan_cache", outcome="hit", backend=bname)
             return prepared
         if counted:
             self.metrics.plan_misses += 1
         if trace is not None:
-            trace.event("plan_cache", outcome="miss", backend=self.backend)
-        return self._build(qtext, sig, trace=trace)
+            trace.event("plan_cache", outcome="miss", backend=bname)
+        return self._build(bname, qtext, sig, trace=trace)
 
     def prepare(self, qtext: str) -> PreparedQuery:
-        """Prepared form of ``qtext``'s template, from cache if present.
-        Cache-hit bookkeeping happens in :meth:`query`; ``prepare`` is
-        the silent path for callers managing their own loop."""
-        return self._prepared_for(qtext, template_signature(qtext))
+        """Prepared form of ``qtext``'s template, from cache if present,
+        on the backend the router currently favors.  Cache-hit
+        bookkeeping happens in :meth:`query`; ``prepare`` is the silent
+        path for callers managing their own loop."""
+        sig = template_signature(qtext)
+        _, prepared = self._route(qtext, sig, counted=False, peek=True)
+        return prepared
+
+    # -- routing ---------------------------------------------------------------
+    def _route(self, qtext: str, sig: str, counted: bool = True,
+               peek: bool = False,
+               use: Optional[RouteDecision] = None,
+               trace: Optional[TraceContext] = None
+               ) -> Tuple[RouteDecision, PreparedQuery]:
+        """Decide a backend for this request and return its prepared
+        query.  Under ``"auto"``, a device backend whose ``prepare``
+        raises is excluded for the signature and the router re-decides —
+        except on a CUDA error or a kernel that cannot be built or
+        loaded, which propagate — and a prepared query that fell back to
+        the eager host engine is likewise excluded: the router must
+        never attribute eager latencies to a device backend.  ``use``
+        short-circuits the first decision (a micro-batch group decides
+        once via :meth:`BackendRouter.decide` and shares it); the
+        exclusion/re-route machinery still applies."""
+        while True:
+            if use is not None:
+                decision, use = use, None
+            else:
+                decision = self.router.peek(sig) if peek \
+                    else self.router.decide(sig)
+            bname = decision.backend
+            if trace is not None:
+                # the routing decision is a trace event, with the EWMAs
+                # it was judged against
+                trace.event("router.decide", backend=bname,
+                            reason=decision.reason,
+                            ewma_ms=self.router.estimates(sig))
+            try:
+                prepared = self._prepared_for(bname, qtext, sig, counted,
+                                              trace=trace)
+            except Exception as exc:
+                if self.auto and bname != "eager" and \
+                        not is_device_error(exc):
+                    self.router.mark_failed(sig, bname)
+                    if trace is not None:
+                        trace.event("router.exclude", backend=bname,
+                                    why="prepare failed")
+                    counted = False    # one request, one hit/miss count
+                    continue
+                raise
+            if self.auto and bname != "eager" and prepared.fallback:
+                self.router.mark_fallback(sig, bname)
+                if trace is not None:
+                    trace.event("router.exclude", backend=bname,
+                                why="eager fallback")
+                counted = False
+                continue
+            return decision, prepared
+
+    def _agreed_ms(self, ms: float) -> float:
+        """``ms`` as the router and tuner see it: on an auto engine over a
+        process group, the largest of the ranks' measurements (one
+        scalar all-reduce), so that every rank routes alike."""
+        if not self._agree:
+            return ms
+        group = self.group
+        dev = self.device if dist.get_backend(group) == "nccl" \
+            else torch.device("cpu")
+        t = torch.tensor([ms], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return float(t.item())
 
     def explain(self, qtext: str) -> str:
         """The compiled plan of ``qtext``'s template plus (for flat BGP
         cores) per-step estimated vs. actual intermediate cardinalities,
-        which join-order planner produced the plan, and the backend the
-        request runs on (the actual column executes the pipeline's joins
-        on the host)."""
-        prepared = self.prepare(qtext)
+        which join-order planner produced the plan, and the routing
+        decision the request would get right now and why (``forced`` on a
+        static engine, ``warmup``/``measured``/``probe`` under ``auto``)
+        — diagnostics, consumes no routing budget (the actual column
+        executes the pipeline's joins on the host)."""
+        sig = template_signature(qtext)
+        decision, prepared = self._route(qtext, sig, counted=False,
+                                         peek=True)
         plan = getattr(prepared, "plan", None)
         lines = [plan.describe() if plan is not None else "(operator tree)"]
         lines.extend(self._explain_cardinalities(prepared, qtext, plan))
-        lines.append(f"backend: {self.backend} (forced)")
+        st = self.router.report()["signatures"].get(sig, {})
+        ewma = st.get("ewma_ms", {})
+        detail = ", ".join(f"{b}={ewma[b]:.3f}ms" for b in sorted(ewma))
+        lines.append(f"backend: {decision.backend} ({decision.reason}"
+                     + (f"; measured {detail}" if detail else "") + ")")
+        if prepared.fallback:
+            lines.append("note: prepared as an eager fallback "
+                         "(device path cannot express this template)")
         return "\n".join(lines)
 
     def _explain_cardinalities(self, prepared: PreparedQuery, qtext: str,
@@ -370,6 +508,8 @@ class Engine:
         self.metrics.rows += len(res)
         if len(res) == 0:
             self.metrics.empties += 1
+        if prepared.fallback:
+            self.metrics.device_fallbacks += 1
         plan = getattr(prepared, "plan", None)
         if (plan is not None and plan.empty) or \
                 (binding is not None and binding.missing):
@@ -385,53 +525,69 @@ class Engine:
         sig = template_signature(qtext)
         if trace is not None:
             trace.annotate(sig=sig)
-        prepared = self._prepared_for(qtext, sig, counted=True, trace=trace)
+        decision, prepared = self._route(qtext, sig, trace=trace)
         binding = prepared.template.binding_for(qtext) \
             if prepared.template.rebindable else None
+        t_run = clock()
         if trace is not None:
-            sid = trace.start("execute", backend=self.backend)
+            sid = trace.start("execute", backend=decision.backend)
             res = prepared.run(binding, trace=trace)
             trace.end(sid, rows=len(res))
         else:
             res = prepared.run(binding)
+        self.router.observe(sig, decision.backend,
+                            self._agreed_ms((clock() - t_run) * 1e3),
+                            reason=decision.reason)
         self.metrics.record_latency((clock() - t0) * 1e3)
-        self.metrics.record_route(self.backend)
+        self.metrics.record_route(decision.backend)
         self._record(prepared, binding, res)
         if trace is not None:
-            self._trace_finish(trace, prepared, binding)
+            self._trace_finish(trace, prepared, binding, decision)
         return res
 
     # -- batched execution -----------------------------------------------------
-    def max_active_batch(self) -> int:
-        """Largest batch one launch serves (the micro-batcher's bucket
-        bound): ``MAX_BATCH``, since nothing here retires batch shapes."""
-        return self.MAX_BATCH
+    def bucket_shape(self, n: int) -> int:
+        """Smallest *active* static batch shape holding ``n`` requests
+        (``n`` larger than the biggest shape is chunked by the caller).
+        The menu starts as ``batch_shapes`` and shrinks as the tuner
+        retires shapes that measure slower than smaller ones."""
+        return self.tuner.bucket_for(n)
 
-    def _run_group(self, prepared: PreparedQuery,
+    def max_active_batch(self) -> int:
+        """Largest currently-active batch shape (the micro-batcher's
+        effective bucket bound)."""
+        return self.tuner.max_shape()
+
+    def _run_group(self, sig: str, decision: RouteDecision,
+                   prepared: PreparedQuery,
                    bindings: List[Optional[object]],
                    traces: Optional[List[Optional[TraceContext]]] = None
                    ) -> List[Result]:
-        """Same-template bindings through ``run_batch``, in chunks of at
-        most ``MAX_BATCH``, unpadded.
+        """Same-template bindings through ``run_batch``, chunked at the
+        largest active static shape.  Every ``run_batch`` of the port runs
+        its bindings in turn, so a chunk is not padded up to a bucket
+        shape and the tuner observes nothing: padding slots would run as
+        real queries.  Padding and ``tuner.observe`` come back with a
+        backend whose batch is one launch.
 
         ``traces`` (parallel to ``bindings``) carries the sampled
-        requests' trace contexts.  A chunk shares ONE launch, so the
-        ``device.launch`` spans land on the chunk's first traced context
-        (the *lead*); every other traced request of the chunk gets its
-        own ``execute`` span flagged ``shared_launch=True``."""
+        requests' trace contexts.  A chunk shares ONE ``run_batch`` call,
+        so the ``device.launch`` spans land on the chunk's first traced
+        context (the *lead*); every other traced request of the chunk
+        gets its own ``execute`` span flagged ``shared_launch=True``."""
         out: List[Result] = []
         clock = self.config.clock
-        step = self.max_active_batch()
+        max_shape = self.max_active_batch()
         if traces is None:
             traces = [None] * len(bindings)
-        for start in range(0, len(bindings), step):
-            chunk = bindings[start: start + step]
+        for start in range(0, len(bindings), max_shape):
+            chunk = bindings[start: start + max_shape]
             traced = [(j, t) for j, t in
-                      enumerate(traces[start: start + step])
+                      enumerate(traces[start: start + max_shape])
                       if t is not None]
             lead = traced[0][1] if traced else None
             open_sids = [
-                (t, t.start("execute", backend=self.backend,
+                (t, t.start("execute", backend=decision.backend,
                             batch=len(chunk), shape=len(chunk),
                             shared_launch=t is not lead))
                 for _, t in traced]
@@ -443,7 +599,11 @@ class Engine:
             self.metrics.batched_requests += len(chunk)
             # every request in the batch observed the batch's wall time
             self.metrics.record_latency(dt_ms, count=len(chunk))
-            self.metrics.record_route(self.backend, count=len(chunk))
+            self.metrics.record_route(decision.backend, count=len(chunk))
+            # the router compares per-request service time across backends
+            self.router.observe(sig, decision.backend,
+                                self._agreed_ms(dt_ms) / len(chunk),
+                                reason=decision.reason, weight=len(chunk))
             for (j, t), (_, sid) in zip(traced, open_sids):
                 t.end(sid, rows=len(res[j]))
             out.extend(res)
@@ -453,12 +613,12 @@ class Engine:
                     traces: Optional[List[Optional[TraceContext]]] = None
                     ) -> List[Result]:
         """Execute a list of queries: requests sharing a template
-        signature run through one batched launch; results come back in
-        submission order.  This is the synchronous core the serving
-        layer's micro-batcher drains into.  ``traces`` lets the batcher
-        hand over trace contexts begun at submit time (so the queue span
-        is part of the trace); called directly, the engine samples its
-        own."""
+        signature run through one ``run_batch`` call per chunk; results
+        come back in submission order.  This is the synchronous core the
+        serving layer's micro-batcher drains into.  ``traces`` lets the
+        batcher hand over trace contexts begun at submit time (so the
+        queue span is part of the trace); called directly, the engine
+        samples its own."""
         tr = self.tracer
         if traces is None:
             traces = [tr.begin(q) for q in qtexts] \
@@ -468,46 +628,61 @@ class Engine:
         for i, qtext in enumerate(qtexts):
             sig_groups.setdefault(template_signature(qtext), []).append(i)
         for sig, idxs in sig_groups.items():
-            groups: "OrderedDict[int, Tuple[PreparedQuery, List[int]]]" = \
+            # ONE routing decision per signature group: the whole group
+            # lands on one backend, and the router costs one decision per
+            # launch group, not one per request
+            shared = self.router.decide(sig, n=len(idxs))
+            groups: "OrderedDict[int, Tuple[RouteDecision, PreparedQuery, List[int]]]" = \
                 OrderedDict()
             for i in idxs:
                 if traces[i] is not None:
                     traces[i].annotate(sig=sig)
-                prepared = self._prepared_for(qtexts[i], sig, counted=True,
-                                              trace=traces[i])
-                groups.setdefault(id(prepared), (prepared, []))[1].append(i)
-            for prepared, sub in groups.values():
+                # per-request _route keeps the failure/fallback re-route
+                # machinery; on the cached fast path it is one dict get
+                decision, prepared = self._route(qtexts[i], sig,
+                                                 use=shared,
+                                                 trace=traces[i])
+                groups.setdefault(id(prepared),
+                                  (decision, prepared, []))[2].append(i)
+            for decision, prepared, sub in groups.values():
                 bindings = [prepared.template.binding_for(qtexts[i])
                             if prepared.template.rebindable else None
                             for i in sub]
-                group_results = self._run_group(prepared, bindings,
+                group_results = self._run_group(sig, decision, prepared,
+                                                bindings,
                                                 [traces[i] for i in sub])
                 for i, binding, res in zip(sub, bindings, group_results):
                     results[i] = res
                     self._record(prepared, binding, res)
                     if traces[i] is not None:
-                        self._trace_finish(traces[i], prepared, binding)
+                        self._trace_finish(traces[i], prepared, binding,
+                                           decision)
         return results  # type: ignore[return-value]
 
     # -- trace support ---------------------------------------------------------
     def _trace_finish(self, trace: TraceContext, prepared: PreparedQuery,
-                      binding) -> None:
+                      binding, decision: RouteDecision) -> None:
         """Join the cardinality-drift report onto the trace's launch
-        spans and hand the finished trace to the flight recorder."""
+        spans (the host engine's ``host.execute`` span when nothing
+        launched) and hand the finished trace to the flight recorder."""
         if self.config.trace_cardinality:
             drift = self._cardinality_drift(prepared, binding)
             if drift is not None:
-                trace.annotate_named("device.launch", cardinalities=drift)
+                if trace.annotate_named("device.launch",
+                                        cardinalities=drift) == 0:
+                    trace.annotate_named("host.execute",
+                                         cardinalities=drift)
                 trace.annotate(cardinalities=drift)
-        trace.finish(backend=self.backend)
+        trace.finish(backend=decision.backend)
 
     def _cardinality_drift(self, prepared: PreparedQuery, binding
                            ) -> Optional[List[Dict[str, object]]]:
         """Estimated vs. actual per-step cardinalities of a flat BGP
         pipeline — ``explain()``'s drift report as a per-trace artifact.
-        The actual column joins the steps on the host, so reports are
-        cached per (prepared, binding): a hot template's traces pay the
-        joins once, not per request."""
+        The actual column joins the steps on the host engine
+        (:func:`repro_torch.core.estimate.actual_cardinalities`), so
+        reports are cached per (prepared, binding): a hot template's
+        traces pay the joins once, not per request."""
         plan = getattr(prepared, "plan", None)
         if plan is None or plan.empty or not plan.steps:
             return None
@@ -542,11 +717,16 @@ class Engine:
 
     # -- observability ---------------------------------------------------------
     def runtime_report(self) -> Dict[str, object]:
-        """One JSON-friendly snapshot: the backend, the planner, the knob
-        values and the serving metrics."""
+        """One JSON-friendly snapshot of every adaptive-runtime decision:
+        per-signature backend choices with their latency estimates, the
+        decision log tail, the live batch-shape menu with per-bucket
+        stats, the active knob values, and the serving metrics."""
         return {
             "backend": self.backend,
+            "auto": self.auto,
             "planner": self.planner,
+            "router": self.router.report(),
+            "tuner": self.tuner.report(),
             "config": self.config.snapshot(),
             "metrics": self.metrics.summary(),
         }

@@ -1,9 +1,10 @@
 """Uniform query-result type.
 
-``Result`` wraps a :class:`Bindings` relation — a bag of solution
-mappings over id-encoded columns, on the host — plus the dictionary, so
-callers can decode ids back to RDF terms and compare results under
-SPARQL bag semantics (column order is presentation, not identity).
+``Result`` wraps a :class:`~repro_torch.core.executor.Bindings` relation
+— a bag of solution mappings over id-encoded columns, on the host — plus
+the dictionary, so callers can decode ids back to RDF terms and compare
+results under SPARQL bag semantics (column order is presentation, not
+identity).
 """
 
 from __future__ import annotations
@@ -14,37 +15,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.executor import Bindings
 from repro_torch.rdf.dictionary import UNBOUND
 
 __all__ = ["Bindings", "Result"]
-
-
-@dataclass
-class Bindings:
-    """A relation over query variables (host rows)."""
-
-    cols: Tuple[str, ...]
-    data: np.ndarray  # (n, len(cols)) int32
-
-    def __post_init__(self) -> None:
-        arr = np.asarray(self.data, dtype=np.int32)
-        if arr.ndim == 2 and arr.shape[1] == len(self.cols):
-            self.data = arr
-        elif len(self.cols):
-            self.data = arr.reshape(-1, len(self.cols))
-        else:  # 0-column relation (fully-bound patterns): keep row count
-            n = arr.shape[0] if arr.ndim >= 1 else 0
-            self.data = arr.reshape(n, 0)
-
-    @staticmethod
-    def empty(cols: Sequence[str]) -> "Bindings":
-        return Bindings(tuple(cols), np.empty((0, len(cols)), dtype=np.int32))
-
-    def __len__(self) -> int:
-        return self.data.shape[0]
-
-    def col(self, var: str) -> np.ndarray:
-        return self.data[:, self.cols.index(var)]
 
 
 @dataclass

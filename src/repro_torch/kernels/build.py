@@ -22,8 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
-__all__ = ["CSRC", "SOURCES", "build_dir", "library_path", "build_all",
-           "load"]
+__all__ = ["CSRC", "SOURCES", "KernelBuildError", "build_dir",
+           "library_path", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source file under ``csrc/``
@@ -35,6 +35,12 @@ NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-fPIC"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel that could not be built (no ``nvcc``, a compile error) or
+    loaded.  The engine never turns it into a host fallback or a routing
+    exclusion: it propagates to the caller."""
 
 
 def build_dir() -> Path:
@@ -52,8 +58,8 @@ def _nvcc() -> str:
                  shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or NVCC to build the "
-                       "CUDA kernels")
+    raise KernelBuildError("nvcc not found: set CUDA_HOME or NVCC to build "
+                           "the CUDA kernels")
 
 
 def library_path(name: str) -> Path:
@@ -90,7 +96,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
             continue
         os.replace(tmp, out[n])
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     return out
 
 
@@ -98,6 +104,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
+        path = build_all([name])[name]
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as exc:
+            raise KernelBuildError(f"cannot load {path}: {exc}") from exc
         _LOADED[name] = lib
     return lib

@@ -19,7 +19,16 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["join_probe", "semijoin_mask", "semijoin_plan",
            "semijoin_bitmaps", "SemijoinPlan", "bucket_count", "launches",
-           "reset_launches", "semijoin_paths"]
+           "reset_launches", "semijoin_paths", "KernelLaunchError"]
+
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's entry point returned a CUDA error.  Like
+    :class:`~repro_torch.kernels.build.KernelBuildError` it always
+    propagates: the engine never turns it into a host fallback or a
+    routing exclusion."""
+
 
 #: threads of one block of the semi-join membership kernel and the probe
 #: keys each takes (four 16-byte vectors: ``4 * VECS`` in semijoin.cu),
@@ -290,8 +299,8 @@ def _launch_bitmaps(build_sorted: torch.Tensor, words: torch.Tensor,
         desc.data_ptr() + 8 * 4 * n_segs, n_segs, n_blocks,
         SEMIJOIN_BITMAP_THREADS, words.data_ptr(), stream)
     if status != 0:
-        raise RuntimeError(f"semijoin bitmap kernel launch failed: CUDA "
-                           f"error {status}")
+        raise KernelLaunchError(f"semijoin bitmap kernel launch failed: "
+                                f"CUDA error {status}")
 
 
 def semijoin_bitmaps(build_sorted: torch.Tensor,
@@ -400,8 +409,8 @@ def _semijoin_launch(probe: torch.Tensor, build_sorted: torch.Tensor,
             int(blocks.sum()), SEMIJOIN_THREADS, mask.data_ptr(),
             counts.data_ptr(), stream)
     if status != 0:
-        raise RuntimeError(f"semijoin kernel launch failed: CUDA error "
-                           f"{status}")
+        raise KernelLaunchError(f"semijoin kernel launch failed: "
+                                f"CUDA error {status}")
     launches["semijoin_membership"] += 1
     n_bitmap = int(plan.bitmap[seg].sum())
     semijoin_paths.update(bitmap=n_bitmap, search=n_pairs - n_bitmap)
@@ -449,8 +458,8 @@ def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
             lo.data_ptr(), cnt.data_ptr(), stride.bit_length() - 1,
             n_splitters, smem, blocks, PROBE_THREADS, sms, stream)
     if status != 0:
-        raise RuntimeError(f"join_probe kernel launch failed: CUDA error "
-                           f"{status}")
+        raise KernelLaunchError(f"join_probe kernel launch failed: "
+                                f"CUDA error {status}")
     launches["join_probe"] += 1
     return lo, cnt
 
@@ -522,7 +531,7 @@ def bucket_count(keys: torch.Tensor, valid: torch.Tensor,
         with torch.cuda.device(dev):
             status = _bucket_count_fn()(*args)
     if status != 0:
-        raise RuntimeError(f"bucket_count kernel launch failed: CUDA error "
-                           f"{status}")
+        raise KernelLaunchError(f"bucket_count kernel launch failed: "
+                                f"CUDA error {status}")
     launches["bucket_count"] += 1
     return out

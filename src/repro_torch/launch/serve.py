@@ -14,8 +14,12 @@ given), starts a :class:`~repro_torch.serve.SparqlServer` and serves the
 selectivity-testing queries ``--passes`` times.  ``--device`` defaults
 to ``cuda`` and the launcher raises without a card.
 
-``--backend distributed`` serves over a ``torch.distributed`` process
-group: under ``torchrun`` (``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` set)
+``--backend`` picks the engine: ``torch`` (the default, one device),
+``eager`` (the host numpy engine), ``auto`` (each template routed
+between eager and torch by measured latency; ``--router-warmup`` and
+``--passes`` give the router its warmup traffic, ``--runtime-report``
+prints its decisions), or ``distributed``, which serves over a
+``torch.distributed`` process group: under ``torchrun`` (``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` set)
 every rank joins the launched world; otherwise the launcher opens a
 world of one (NCCL on the card, gloo on the CPU).
 """
@@ -79,6 +83,11 @@ def serve_sparql(args) -> None:
                   f"{time.perf_counter() - t0:.3f}s "
                   "(next boot loads it without rebuilding)")
     rt_kwargs = {}
+    if args.batch_shapes:
+        rt_kwargs["batch_shapes"] = tuple(
+            int(t) for t in args.batch_shapes.replace(",", " ").split())
+    if args.router_warmup is not None:
+        rt_kwargs["router_warmup"] = args.router_warmup
     if args.planner:
         rt_kwargs["planner"] = args.planner
     if args.trace_sample is not None:
@@ -136,8 +145,10 @@ def serve_sparql(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="torch",
-                    choices=["torch", "distributed"],
-                    help="one device, or the ranks of a torch.distributed "
+                    choices=["eager", "torch", "auto", "distributed"],
+                    help="the host numpy engine, one device, per-template "
+                         "routing between the two by measured latency "
+                         "(auto), or the ranks of a torch.distributed "
                          "process group (a world of one unless torchrun "
                          "set one up)")
     ap.add_argument("--device", default="cuda",
@@ -150,13 +161,24 @@ def main() -> None:
                          "env or 'greedy'); 'estimate' enumerates orders "
                          "by estimated intermediate cardinality")
     ap.add_argument("--layout", default="extvp",
-                    choices=["extvp", "vp", "tt"],
-                    help="storage schema the plans compile for")
+                    choices=["extvp", "vp", "tt", "pt"],
+                    help="storage schema the plans compile for (pt runs "
+                         "on the host engine)")
+    ap.add_argument("--batch-shapes", default=None,
+                    help="comma-separated micro-batch bucket menu, e.g. "
+                         "1,4,16 (default REPRO_RT_BATCH_SHAPES or "
+                         "1,2,4,8,16,32)")
+    ap.add_argument("--router-warmup", type=int, default=None,
+                    help="measured executions per (template, backend) "
+                         "before auto exploits the winner (default "
+                         "REPRO_RT_WARMUP or 2)")
     ap.add_argument("--passes", type=int, default=1,
-                    help="serve the workload N times")
+                    help="serve the workload N times (give the adaptive "
+                         "router warmup traffic)")
     ap.add_argument("--runtime-report", action="store_true",
-                    help="print the engine's JSON report (backend, "
-                         "planner, knobs, metrics)")
+                    help="print the adaptive-runtime JSON snapshot "
+                         "(routing decisions, batch-shape menu, knobs, "
+                         "metrics)")
     ap.add_argument("--trace-sample", type=float, default=None,
                     help="per-request span-trace sampling rate in [0,1] "
                          "(default REPRO_RT_TRACE_SAMPLE or 0.0 = off)")

@@ -4,9 +4,10 @@ Renders a :class:`~repro_torch.engine.engine.ServerMetrics` (duck-typed —
 this module must not import the engine, the engine imports *it*) into
 the Prometheus text exposition format: counters for every request-path
 count, histograms for request/queue latency from the
-:class:`~repro_torch.obs.histogram.LogHistogram`s, and per-stage span
-histograms from the tracer's aggregates.  The names are the reference
-package's (docs/observability.md):
+:class:`~repro_torch.obs.histogram.LogHistogram`s, per-stage span
+histograms from the tracer's aggregates, and router/tuner state as
+labelled gauges.  The names are the reference package's
+(docs/observability.md):
 
 * ``repro_served_total``, ``repro_rows_total``, ``repro_empties_total``,
   ``repro_short_circuits_total``, ``repro_device_fallbacks_total``,
@@ -17,10 +18,11 @@ package's (docs/observability.md):
 * ``repro_request_latency_ms`` / ``repro_queue_ms`` (histograms)
 * ``repro_stage_ms{stage=...}`` (histogram per span name)
 * ``repro_traces_total{state=started|finished|sampled_out}``
-
-The reference's router and tuner gauges are absent: the port has no
-backend router or batch-shape tuner, and ``runtime_report()`` has no
-``router`` or ``tuner`` key.
+* ``repro_router_ewma_ms{sig=...,backend=...}``,
+  ``repro_router_requests{sig=...}``
+* ``repro_tuner_per_slot_ms{shape=...}``,
+  ``repro_tuner_occupancy{shape=...}``,
+  ``repro_tuner_shape_active{shape=...}``
 """
 
 from __future__ import annotations
@@ -108,4 +110,45 @@ def render(metrics) -> str:
             _histogram(lines, "repro_stage_ms", tracer.stage_hist[stage],
                        "per-stage span duration (ms)", {"stage": stage})
 
+    report = metrics.runtime_report()
+    router = report.get("router") if isinstance(report, dict) else None
+    if router:
+        ewma_rows: Dict[str, object] = {}
+        req_rows: Dict[str, object] = {}
+        for sig, st in router.get("signatures", {}).items():
+            req_rows[_labels({"sig": sig})] = st.get("requests", 0)
+            for backend, ms in st.get("ewma_ms", {}).items():
+                ewma_rows[_labels({"sig": sig, "backend": backend})] = ms
+        if req_rows:
+            _counter(lines, "repro_router_requests", None,
+                     "requests routed per template signature", req_rows)
+        if ewma_rows:
+            _counter(lines, "repro_router_ewma_ms", None,
+                     "router latency estimate per (signature, backend)",
+                     ewma_rows, kind="gauge")
+    tuner = report.get("tuner") if isinstance(report, dict) else None
+    if tuner:
+        active = set(tuner.get("active", []))
+        slot_rows: Dict[str, object] = {}
+        occ_rows: Dict[str, object] = {}
+        act_rows: Dict[str, object] = {}
+        for shape, st in tuner.get("buckets", {}).items():
+            act_rows[_labels({"shape": shape})] = \
+                int(int(shape) in active)
+            if st.get("per_slot_ms") is not None:
+                slot_rows[_labels({"shape": shape})] = st["per_slot_ms"]
+            if st.get("occupancy") is not None:
+                occ_rows[_labels({"shape": shape})] = st["occupancy"]
+        if act_rows:
+            _counter(lines, "repro_tuner_shape_active", None,
+                     "1 when the batch shape is still in the menu",
+                     act_rows, kind="gauge")
+        if slot_rows:
+            _counter(lines, "repro_tuner_per_slot_ms", None,
+                     "EWMA per-slot launch time per batch shape",
+                     slot_rows, kind="gauge")
+        if occ_rows:
+            _counter(lines, "repro_tuner_occupancy", None,
+                     "EWMA live-slot fraction per batch shape",
+                     occ_rows, kind="gauge")
     return "\n".join(lines) + "\n"

@@ -1,30 +1,32 @@
-"""Runtime knobs of the serving layer.
+"""Runtime knobs of the serving layer and the adaptive runtime.
 
-Every knob the port's engine, tracer and micro-batcher read lives here,
-with the reference's names, defaults and ``REPRO_RT_*`` environment
-variables: one object, defaults readable in one place, every knob
-overridable from the environment so a deployment can be re-tuned
-without touching code.
+Every tunable of the :class:`~repro_torch.runtime.router.BackendRouter`,
+the :class:`~repro_torch.runtime.tuner.BatchTuner`, the tracer and the
+micro-batcher lives here, with the reference's names, defaults and
+``REPRO_RT_*`` environment variables: one object, defaults readable in
+one place, every knob overridable from the environment so a deployment
+can be re-tuned without touching code.
 
-The config also owns the **clock**: request latencies, span times and
-the micro-batcher's queue waits are all measured through
-``config.clock``, so injecting a fake clock makes traces, histograms
-and the Prometheus text deterministic.
+The config also owns the **clock**: request latencies, span times, the
+micro-batcher's queue waits and every latency the router and tuner see
+are measured through ``config.clock``, so injecting a fake clock makes
+routing decisions, traces, histograms and the Prometheus text
+deterministic.
 
-    cfg = RuntimeConfig(trace_sample_rate=0.1, flush_ms=5.0)
-    eng = dataset.engine(runtime=cfg)
+    cfg = RuntimeConfig(router_warmup=3, batch_shapes=(1, 4, 16))
+    eng = dataset.engine("auto", runtime=cfg)
 
     REPRO_RT_TRACE_SAMPLE=1.0 python -m repro_torch.launch.serve ...
 
-Knobs of the reference's backend router, batch-shape tuner and plan
-verifier are not here: the port has none of those yet.
+The reference's plan-verifier knob (``verify_plans``) is not here: the
+port has no verifier yet.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 __all__ = ["RuntimeConfig", "runtime_config"]
 
@@ -48,8 +50,19 @@ def _env_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() not in ("", "0", "false", "no", "off")
 
 
+def _env_shapes(name: str, default: Tuple[int, ...]) -> Tuple[int, ...]:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    shapes = tuple(int(tok) for tok in raw.replace(",", " ").split())
+    if not shapes or min(shapes) < 1:
+        raise ValueError(f"{name} must be positive ints, got {raw!r}")
+    return tuple(sorted(set(shapes)))
+
+
 class RuntimeConfig:
-    """The serving layer's knobs, with ``REPRO_RT_*`` env overrides.
+    """All serving and adaptive-runtime knobs, with ``REPRO_RT_*`` env
+    overrides.
 
     Keyword arguments override both the defaults and the environment;
     unknown names raise (typos must not silently become dead knobs).
@@ -57,6 +70,29 @@ class RuntimeConfig:
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter,
                  **overrides):
+        ######## Backend router ########
+        # measured executions per (signature, backend) before the router
+        # starts exploiting the observed winner
+        self.router_warmup = _env_int("REPRO_RT_WARMUP", 2)
+        # after convergence, every Nth request of a signature re-probes a
+        # non-winning backend (drift detection for losers that improved;
+        # a winner that degrades is caught by its own EWMA)
+        self.router_probe_every = _env_int("REPRO_RT_PROBE_EVERY", 32)
+        # EWMA smoothing for per-backend latency estimates
+        self.router_alpha = _env_float("REPRO_RT_ALPHA", 0.3)
+        # first N observations per (signature, backend) are discarded
+        # from the EWMA: they carry first-touch time (table uploads,
+        # kernel loads), not steady-state latency (they still advance
+        # the warmup counter)
+        self.router_discard = _env_int("REPRO_RT_DISCARD", 1)
+        # ring-buffer length of the per-decision log in runtime_report()
+        self.router_log_size = _env_int("REPRO_RT_LOG_SIZE", 256)
+        # every Nth request of a signature clears its *fallback*
+        # exclusions so backends that gained coverage are re-tried;
+        # ``failed`` exclusions (prepare raised) stay permanent.
+        # 0 disables.
+        self.router_readmit_every = _env_int("REPRO_RT_READMIT_EVERY", 512)
+
         ######## Query planner ########
         # join-order planner: "greedy" is the paper's Algorithm 4
         # (#bound values, table size); "estimate" enumerates orders by
@@ -65,6 +101,19 @@ class RuntimeConfig:
         # statistics.  Part of the Engine's plan-cache key, so flipping
         # it mid-session re-plans instead of serving a stale order.
         self.planner = _env_str("REPRO_RT_PLANNER", "greedy")
+
+        ######## Batch-shape tuner ########
+        # launches a bucket needs before it can be retired (or retire
+        # a rival); discarded launches do not count
+        self.tuner_min_samples = _env_int("REPRO_RT_TUNER_MIN_SAMPLES", 3)
+        # bucket B is retired when its per-slot time exceeds a smaller
+        # active bucket's by this factor — batching that measures slower
+        # than less batching is pure loss
+        self.tuner_margin = _env_float("REPRO_RT_TUNER_MARGIN", 1.1)
+        self.tuner_alpha = _env_float("REPRO_RT_TUNER_ALPHA", 0.3)
+        # first N launches per bucket shape carry first-touch time;
+        # discard
+        self.tuner_discard = _env_int("REPRO_RT_TUNER_DISCARD", 1)
 
         ######## Observability ########
         # fraction of requests that carry a full span trace
@@ -87,6 +136,11 @@ class RuntimeConfig:
                                            True)
 
         ######## Micro-batching ########
+        # static batch-shape menu (the Engine pads a batch that is one
+        # launch up to these); the tuner retires entries it measures as
+        # regressions
+        self.batch_shapes = _env_shapes("REPRO_RT_BATCH_SHAPES",
+                                        (1, 2, 4, 8, 16, 32))
         # largest bucket the micro-batcher lets fill, and how long the
         # oldest queued request may wait for batch-mates (checked on
         # every submit; not on the distributed backend, see
@@ -95,13 +149,18 @@ class RuntimeConfig:
         self.flush_ms = _env_float("REPRO_RT_FLUSH_MS", 2.0)
 
         # injectable time source (seconds); every latency the engine,
-        # tracer and batcher record is measured through this
+        # tracer, batcher, router and tuner see is measured through this
         self.clock = clock
 
         for name, value in overrides.items():
             if not hasattr(self, name):
                 raise ValueError(f"unknown RuntimeConfig knob {name!r}")
             setattr(self, name, value)
+        if isinstance(self.batch_shapes, (list, tuple)):
+            self.batch_shapes = tuple(sorted(set(int(s)
+                                                 for s in self.batch_shapes)))
+        if not self.batch_shapes or min(self.batch_shapes) < 1:
+            raise ValueError("batch_shapes must be positive ints")
         if not 0.0 <= float(self.trace_sample_rate) <= 1.0:
             raise ValueError(
                 f"trace_sample_rate must be in [0, 1], got "

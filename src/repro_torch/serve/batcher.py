@@ -15,7 +15,8 @@ every ``submit``), or when a caller forces it (``flush()`` /
 ``PendingQuery.result()``).  Waits are measured through the engine's
 ``config.clock``.
 
-**The distributed rule.**  On the ``"distributed"`` backend every rank
+**The distributed rule.**  On the ``"distributed"`` backend (and on
+``"auto"`` over a process group) every rank
 runs its own batcher over the same request sequence, and a batched
 launch is a sequence of collectives that all ranks must enter together.
 A wall-clock deadline could expire on one rank and not on another, group
@@ -83,15 +84,20 @@ class MicroBatcher:
         self.max_batch = int(max_batch)
         self.flush_ms = float(flush_ms)
         self.clock = engine.config.clock
-        #: False on the distributed backend: ranks must group requests
-        #: the same way, so no flush may depend on a rank's clock
-        self.latency_bound = engine.backend != "distributed"
+        #: False when the engine runs over a process group (the
+        #: distributed backend, or ``"auto"`` with a group): ranks must
+        #: group requests the same way, so no flush may depend on a
+        #: rank's clock
+        self.latency_bound = "distributed" not in engine.backends
         self._queues: "OrderedDict[str, List[PendingQuery]]" = OrderedDict()
 
     # -- queue state -----------------------------------------------------------
     def effective_max_batch(self) -> int:
-        """The bucket bound: ``max_batch`` capped by the largest batch
-        the engine serves in one launch."""
+        """The live bucket bound: ``max_batch`` capped by the largest
+        batch shape the engine's tuner still considers worth launching —
+        once a shape is retired as a measured regression, letting buckets
+        fill to it would only split into smaller chunks anyway, while the
+        earlier requests waited for nothing."""
         return min(self.max_batch, self.engine.max_active_batch())
 
     def pending(self) -> int:

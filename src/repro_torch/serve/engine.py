@@ -13,6 +13,11 @@
   stays the immediate single-request path.
 * **Statistics short-circuit.**  Provably-empty plans are answered
   without touching data and counted in the metrics.
+* **Engine selection.**  ``"eager"`` (the host numpy engine),
+  ``"torch"`` (one device), ``"distributed"`` (a process group) — or
+  ``"auto"``, which routes each template to the backend its measured
+  latencies favor (:mod:`repro_torch.runtime`; ``runtime_report()``
+  shows every decision).
 * **Metrics.**  Latency percentiles, plan-cache hit rate, empty-answer
   count, rows served, batch occupancy and queue latency, the Prometheus
   exposition, and span traces (``runtime.trace_sample_rate``).
@@ -26,12 +31,12 @@ the same requests in the same order (see
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 from repro_torch.core.stats import Catalog
 from repro_torch.device import resolve_device
 from repro_torch.engine import Dataset, Engine, Result, template_signature
-from repro_torch.engine.engine import ServerMetrics
+from repro_torch.engine.engine import BACKENDS, ServerMetrics
 from repro_torch.serve.batcher import MicroBatcher, PendingQuery
 
 __all__ = ["SparqlServer", "ServerMetrics", "MicroBatcher", "PendingQuery",
@@ -49,7 +54,8 @@ class SparqlServer:
     file on first read) — without touching the build pipeline.
 
     ``max_batch`` / ``flush_ms`` default to the runtime config's knobs,
-    and ``runtime.planner`` selects the planner.
+    ``runtime.planner`` selects the planner, and ``batch_shapes`` (else
+    ``runtime.batch_shapes``) is the batch-shape menu.
     ``device=None`` means the dataset's device for a Dataset and
     ``"cuda"`` otherwise.
     """
@@ -60,7 +66,13 @@ class SparqlServer:
                  max_batch: Optional[int] = None,
                  flush_ms: Optional[float] = None,
                  eager_load: bool = False, verify_store: bool = False,
+                 batch_shapes: Optional[Sequence[int]] = None,
                  runtime=None):
+        # checked before the store boots: a server must not load a
+        # catalog for a backend it cannot run
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; available: "
+                             f"{list(BACKENDS)}")
         if isinstance(source, (str, os.PathLike)):
             self.dataset = Dataset.load(source, eager=eager_load,
                                         verify=verify_store,
@@ -73,7 +85,8 @@ class SparqlServer:
             self.dataset = source
         self.engine: Engine = self.dataset.engine(
             backend, device=device, layout=layout,
-            plan_cache_size=plan_cache_size, runtime=runtime)
+            plan_cache_size=plan_cache_size, batch_shapes=batch_shapes,
+            runtime=runtime)
         cfg = self.engine.config
         self.batcher = MicroBatcher(
             self.engine,
@@ -85,7 +98,8 @@ class SparqlServer:
         return self.engine.metrics
 
     def runtime_report(self):
-        """The engine's report: backend, planner, knob values and the
+        """Snapshot of the adaptive runtime: per-template routing state,
+        batch-shape menu and per-bucket stats, knob values, and the
         serving metrics."""
         return self.engine.runtime_report()
 

@@ -266,9 +266,82 @@ def job_serve(args):
             "launch_spans": len(launches)}
 
 
+class _ScriptedClock:
+    """A rank's fake clock: it advances only when a scripted run says."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def job_auto_routing(args):
+    """An ``"auto"`` engine over the group (eager, torch, distributed)
+    whose runs advance each rank's own fake clock by that rank's script:
+    alone, rank 0 would crown torch and rank 1 eager.  Returns the
+    routing log (less the clock stamps), the router's report, and the
+    answers held against the single-device engine as multisets."""
+    from repro_torch import Dataset, Engine, RuntimeConfig
+    from repro_torch.rdf.workloads import basic_queries
+
+    script = ({"eager": 5.0, "torch": 1.0, "distributed": 4.0},
+              {"eager": 2.0, "torch": 3.0, "distributed": 0.5}
+              )[dist.get_rank()]
+    clock = _ScriptedClock()
+    ds = Dataset.watdiv(scale=args["scale"], seed=0, threshold=0.25,
+                        device="cpu")
+    eng = Engine(ds, backend="auto", device="cpu", group=dist.group.WORLD,
+                 runtime=RuntimeConfig(clock=clock, router_warmup=1,
+                                       router_discard=0,
+                                       router_probe_every=4))
+    for backend in eng._backends.values():
+        prepare = backend.prepare
+
+        def scripted(template, ctx, prepare=prepare):
+            prepared = prepare(template, ctx)
+            run, run_batch = prepared.run, prepared.run_batch
+            ms = script[prepared.backend]
+
+            def timed_run(*a, **k):
+                out = run(*a, **k)
+                clock.t += ms / 1e3
+                return out
+
+            def timed_batch(bindings, *a, **k):
+                out = run_batch(bindings, *a, **k)
+                clock.t += ms * len(bindings) / 1e3
+                return out
+
+            prepared.run, prepared.run_batch = timed_run, timed_batch
+            return prepared
+
+        backend.prepare = scripted
+    one = Engine(ds, device="cpu")
+    qs = basic_queries(ds.schema, seed=3, n_instances=args["instances"])
+    order = [q for name in ("S1", "L2", "F1") for q in qs[name]]
+    equal = 0
+    results = [eng.query(q) for q in order] + eng.query_batch(order)
+    for q, got in zip(order + order, results):
+        want = one.query(q)
+        assert got.cols == want.cols, q
+        assert sorted(map(tuple, got.data.tolist())) == \
+            sorted(map(tuple, want.data.tolist())), q
+        equal += 1
+    rep = eng.router.report()
+    sig = next(iter(rep["signatures"]))
+    return {"routes": [(e["backend"], e["reason"]) for e in eng.router.log],
+            "report": {"signatures": rep["signatures"],
+                       "ms": [e["ms"] for e in eng.router.log],
+                       "ewma": rep["signatures"][sig]["ewma_ms"]},
+            "seat": rep["signatures"][sig]["choice"],
+            "equal": equal, "requests": len(results)}
+
+
 JOBS = {"suite": job_suite, "queries": job_queries,
         "repartition": job_repartition, "build": job_build,
-        "isolation": job_isolation, "serve": job_serve}
+        "isolation": job_isolation, "serve": job_serve,
+        "auto_routing": job_auto_routing}
 
 
 def main() -> None:

@@ -214,9 +214,17 @@ def test_missing_constant_short_circuits():
 
 
 def test_unported_paths_raise_and_are_counted():
+    """The host-only ``pt`` layout no longer raises: it is served through
+    the flagged eager fallback, cached, and counted per request, as the
+    reference's ``jit`` engine does."""
+    rds = RDataset.from_triples(MOD_TRIPLES)
     ds = Dataset.from_triples(MOD_TRIPLES, device="cpu")
     eng = ds.engine(layout="pt")
-    with pytest.raises(NotImplementedError):
-        eng.query("SELECT * WHERE { ?u ex:likes ?p }")
-    assert eng.metrics.device_fallbacks == 1
-    assert len(eng.cache) == 0
+    q = "SELECT * WHERE { ?u ex:likes ?p }"
+    want = rds.engine("jit", layout="pt").query(q)
+    for _ in range(2):
+        got = eng.query(q)
+        assert got.cols == want.cols
+        np.testing.assert_array_equal(got.data, want.data)
+    assert eng.metrics.device_fallbacks == 2
+    assert len(eng.cache) == 1

@@ -78,6 +78,39 @@ print("BAD", bad)
 """
 
 
+_HOST_CHILD = r"""
+import sys
+import repro_torch.core.executor, repro_torch.core.pt
+import repro_torch.core.reference
+import repro_torch.runtime.router, repro_torch.runtime.tuner
+from repro_torch import Dataset, RuntimeConfig, SparqlServer
+from repro_torch.core.reference import execute_reference
+from repro_torch.core.sparql import parse_sparql
+from repro_torch.rdf.workloads import basic_queries
+ds = Dataset.watdiv(scale=0.05, seed=1, threshold=0.25, device="cpu")
+qs = basic_queries(ds.schema, seed=1)
+auto = ds.engine("auto", runtime=RuntimeConfig(router_warmup=1))
+rows = 0
+for _ in range(3):
+    rows += sum(len(auto.query(q[0])) for q in qs.values())
+rows += sum(len(r) for r in auto.query_batch(qs["S1"] + qs["C3"]))
+rows += sum(len(ds.engine(layout="pt").query(q[0])) for q in qs.values())
+rows += len(ds.engine("eager").query(qs["L4"][0]))
+srv = SparqlServer(ds, backend="auto", runtime=RuntimeConfig())
+tickets = [srv.submit(q) for q in qs["S2"]]
+srv.flush()
+rows += sum(len(t.result()) for t in tickets)
+q = parse_sparql("SELECT * WHERE { ?a ?p ?b }", ds.dictionary)
+rows += len(execute_reference(q, ds.catalog.tt[:50], ds.dictionary.values))
+text = srv.metrics.prometheus() + auto.explain(qs["S1"][0])
+routed = auto.metrics.summary()["routed"]
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows, "ROUTED", sorted(routed), "TEXT", "repro_router_" in text)
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -112,6 +145,18 @@ def test_serving_layer_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "TEXT True" in out.stdout, out.stdout
+    assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_host_engine_and_auto_import_neither_jax_nor_repro():
+    """The eager executor, the property-table layout, the oracle, and an
+    ``"auto"`` engine with its router and tuner (single, batched and
+    served), all through the port."""
+    out = subprocess.run([sys.executable, "-c", _HOST_CHILD], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "ROUTED ['eager', 'torch'] TEXT True" in out.stdout, out.stdout
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
 
 

@@ -403,15 +403,10 @@ def _launch_spans(tracer):
 
 
 def _normalized(tracer):
-    """JSONL trace dicts with the backend names unified and the
-    reference's router events dropped (the port has no router)."""
+    """JSONL trace dicts with the backend names unified (the router's
+    events included)."""
     text = tracer.to_jsonl().replace('"jit"', '"torch"')
-    rows = [json.loads(line) for line in text.splitlines()]
-    for row in rows:
-        for span in row["spans"]:
-            span["events"] = [e for e in span["events"]
-                              if not e["name"].startswith("router.")]
-    return rows
+    return [json.loads(line) for line in text.splitlines()]
 
 
 def _engines(pair, **kw):
@@ -497,18 +492,7 @@ class TestEngineTracing:
         assert "repro_served_total 7" in text
         assert 'repro_traces_total{state="finished"} 7' in text
         assert 'repro_stage_ms_bucket{stage="device.launch"' in text
-        assert text == _without_router_and_tuner(
-            ref.metrics.prometheus().replace('"jit"', '"torch"'))
-
-
-def _without_router_and_tuner(text):
-    """The reference's page less its router and tuner gauge families,
-    which need a backend router and a batch-shape tuner."""
-    keep, out = True, []
-    for line in text.splitlines(keepends=True):
-        if line.startswith("# HELP "):
-            keep = not line.split()[2].startswith(("repro_router_",
-                                                   "repro_tuner_"))
-        if keep:
-            out.append(line)
-    return "".join(out)
+        assert "repro_router_requests{sig=" in text
+        assert 'repro_tuner_shape_active{shape="32"} 1' in text
+        # the whole page, router and tuner families included
+        assert text == ref.metrics.prometheus().replace('"jit"', '"torch"')
