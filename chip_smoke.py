@@ -12,6 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    kernel, the plain version and the one-call library yardstick (the
    join probe's unit cases at several ``ops.SMEM_KEYS``, so that every
    stride of its search occurs; a misaligned build column must raise;
+   its batched launches, B of 1, 2, 7 and 32 rows against one build for
+   every row and against a build a row, builds of 16 to 2^19 keys with
+   pads and UNBOUND keys, one launch a call; unaligned build rows must
+   raise;
    the semi-join's batches mix its bitmap and search paths, sit at the
    edges of its density rule and have bitmap ranges that are not a
    multiple of 32, and its bitmap words are held against their plain
@@ -25,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
    the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
    the card (the semi-join kernel over every pair batch), then serves
    through ``Engine.query`` (every instance of the 20 basic templates)
-   and ``Engine.query_batch`` (each template's instances in one call);
+   and ``Engine.query_batch`` (each template's instances as one launch
+   sequence, padded to its bucket shape, with its peak device memory;
+   ``BATCH_CUT`` templates skip it: their batch does not fit the card);
    a pair of CUDA events around every join-probe call, read after the
    suite (the probe's whole cost over the path, by probe size); then the
    numpy ExtVP build over the same VP tables, which must give a
@@ -67,9 +73,17 @@ Phases (any failure exits non-zero and prints no result line):
    before each part and read just after (all three must run).  7a, at
    ``--scale`` after 6a, on phase 3's dataset: a ``SparqlServer`` takes
    32 interleaved instances of every template (3 of C1 and C2, whose
-   results do not fit 32 times beside the catalog: ``SERVE_CUT``) and
-   one flush, each ticket held row for row against ``Engine.query``,
-   and prints ``summary()``; the suite served at trace rates 0, 1.0
+   results do not fit 32 times beside the catalog: ``SERVE_CUT``; one
+   of a ``BATCH_CUT`` template) and one flush, then ``PARTIAL_INSTANCES``
+   of each template but ``BATCH_CUT`` and one flush (partial buckets),
+   each ticket held row for row against ``Engine.query``; every bucket
+   is one launch sequence padded to its shape.  It prints
+   ``summary()`` after each pass (non-zero padding waste), the tuner's
+   report, the batch walls, and per template the chunks, attempts,
+   join-probe launches per attempt against phase 3's per warm query and
+   peak memory; then the batched probe on the most frequent served
+   32-row step of each build form, against 32 single launches, the
+   plain version and a batched ``torch.searchsorted`` pair; the suite served at trace rates 0, 1.0
    and 0.1 in turns on one engine (``TRACE_NO_CARDINALITY`` with the
    cardinality report off, then one request each with it on, timed),
    traced results equal to untraced ones, the Chrome dump read by
@@ -103,14 +117,16 @@ Phases (any failure exits non-zero and prints no result line):
    the auto server, one with the default router knobs (less
    ``DEFAULT_KNOBS_CUT``: its eager share and batch p50 / p99) and one
    with the probes off, and the Prometheus page's router and tuner
-   families.  8b, at ``--compare-scale`` after 7b: the
+   families (the tuner's per-slot times among them).  8b, at ``--compare-scale`` after 7b: the
    same for ``AUTO_SMALL_ONLY`` through auto and all 20 templates under
    pt.  The cuts are printed as ``reduced``.
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
-over the main path, one with phase 7's numbers, one with phase 8's, one
-with the kernels' numbers, then the card's name and power limit, then
+over the main path, one with the batched probe's (phase 2's check, the
+served step's times, each template's launches per served batch), one
+with phase 7's numbers, one with phase 8's, one with the kernels'
+numbers, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -362,6 +378,138 @@ def phase_kernels(ops, ref) -> None:
             f"({nums['bound_by']}, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
         del a, b
     torch.cuda.empty_cache()
+
+
+#: the batched probe's unit cases: bindings a batch, and build lengths
+#: from 16 to 2^19 keys (with SMEM_KEYS at 32,768 and at 64 every stride
+#: and window width of the search occurs).  A build a row needs rows of a
+#: multiple of 4 keys (16-byte aligned), so the odd lengths take one
+#: build for every row only, beside a multiple of 4 just past them.
+BATCH_SIZES = (1, 2, 7, 32)
+BATCH_BUILD_KEYS = (16, 100, 1024, 4097, 4100, 32768, 32769, 32772,
+                    1 << 17, 1 << 19)
+BATCH_PROBE_KEYS = 1000
+
+
+def batched_probe_case(gen: torch.Generator, batch: int, n_b: int):
+    """(probe (B, n_a), builds (B, n_b)) on the card: each build row
+    ascending with its own count of live keys (UNBOUND keys -5 at its
+    head when it has a few, build pads 2^31-2 behind), each probe row a
+    mix of its build's keys, keys outside it, probe pads 2^31-1 and
+    UNBOUND keys -3; the last row of a batch of 3 or more all pads (a
+    padding binding's)."""
+    dev = "cuda"
+    live = torch.randint(0, n_b + 1, (batch,), generator=gen)
+    live[0] = n_b
+    keys = torch.sort(torch.randint(0, max(n_b // 2, 2), (batch, n_b),
+                                    generator=gen, dtype=torch.int32),
+                      dim=1).values
+    col = torch.arange(n_b)[None, :]
+    b = torch.where(col < live[:, None], keys, torch.tensor(2**31 - 2,
+                                                           dtype=torch.int32))
+    b[:, :2] = torch.where(live[:, None] > 4, torch.tensor(-5,
+                           dtype=torch.int32), b[:, :2])
+    a = torch.randint(-2, n_b, (batch, BATCH_PROBE_KEYS), generator=gen,
+                      dtype=torch.int32)
+    pick = torch.randint(0, n_b, (batch, BATCH_PROBE_KEYS), generator=gen)
+    pick = torch.minimum(pick, torch.clamp(live[:, None] - 1, min=0))
+    own = torch.gather(b, 1, pick)
+    a = torch.where((torch.arange(BATCH_PROBE_KEYS) % 3 == 0)[None, :]
+                    & (live[:, None] > 0), own, a)
+    a[:, ::7] = PROBE_PAD
+    a[:, 1::11] = -3
+    if batch >= 3:
+        a[-1] = PROBE_PAD
+    return a.to(dev).contiguous(), b.to(dev).contiguous()
+
+
+def phase_batched_probe(ops, ref) -> dict:
+    """The batched join probe against its plain version, exactly: every
+    batch size of ``BATCH_SIZES`` and build length of
+    ``BATCH_BUILD_KEYS``, with a build a row (``join_probe_batched_
+    launch``) and with one build for every row (row 0's: the rows end to
+    end, one launch), at the committed ``SMEM_KEYS`` and at 64; one
+    launch a call.  A build a row whose rows are not 16-byte aligned
+    raises and launches nothing."""
+    gen = torch.Generator().manual_seed(19)
+    default, calls = ops.SMEM_KEYS, 0
+    cases = [(bsz, n_b) + batched_probe_case(gen, bsz, n_b)
+             for bsz in BATCH_SIZES for n_b in BATCH_BUILD_KEYS]
+    try:
+        for smem_keys in (default, 64):
+            ops.SMEM_KEYS = smem_keys
+            for bsz, n_b, a, b in cases:
+                forms = [(b[0].contiguous(), "one build")]
+                if bsz == 1 or n_b % 4 == 0:
+                    forms.append((b, "a build a row"))
+                for build, form in forms:
+                    before = ops.launches["join_probe"]
+                    lo, cnt = ops.join_probe(a, build)
+                    torch.cuda.synchronize()
+                    if ops.launches["join_probe"] != before + 1:
+                        raise AssertionError("a batched join_probe call did "
+                                             "not launch once")
+                    wlo, wcnt = ref.join_probe_ref(a, build)
+                    if not (torch.equal(lo, wlo) and torch.equal(cnt, wcnt)):
+                        raise AssertionError(
+                            f"batched join_probe B {bsz}, n_b {n_b}, {form}, "
+                            f"SMEM_KEYS {smem_keys}: kernel != plain")
+                    calls += 1
+    finally:
+        ops.SMEM_KEYS = default
+    bad = torch.zeros((3, 6), dtype=torch.int32, device="cuda")
+    before = ops.launches["join_probe"]
+    try:
+        ops.join_probe(torch.zeros((3, 10), dtype=torch.int32,
+                                   device="cuda"), bad)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("join_probe took build rows that are not "
+                             "16-byte aligned")
+    if ops.launches["join_probe"] != before:
+        raise AssertionError("join_probe launched on unaligned build rows")
+    log(f"  batched join_probe == plain on {calls} calls: B "
+        f"{list(BATCH_SIZES)} x n_b {list(BATCH_BUILD_KEYS)} x (one build; "
+        f"a build a row where n_b is a multiple of 4) x SMEM_KEYS "
+        f"({default}, 64), {BATCH_PROBE_KEYS} probe keys a row; unaligned "
+        f"build rows refused")
+    del cases
+    torch.cuda.empty_cache()
+    return {"calls": calls, "max_abs_err": 0}
+
+
+def batched_probe_numbers(ops, ref, a: torch.Tensor, b: torch.Tensor
+                          ) -> dict:
+    """Times and bound of one batched probe (a ``(B, n_a)`` probe
+    against a ``(B, n_b)`` build, or one ``(n_b,)`` build for every
+    row): the batched kernel, B single launches, the plain version, one
+    batched ``torch.searchsorted`` pair; the bytes bound reads the B·n_a
+    probe keys and one build per distinct build row and writes B·n_a·8
+    bytes.  Each checked against the plain version first."""
+    batch, n_a = a.shape
+    per_row = b.dim() == 2
+    n_b = b.shape[-1]
+    err = check_probe(ops, ref, a, b, f"batched {batch} x {n_a} x {n_b}")
+    rows = [(a[r], b[r] if per_row else b) for r in range(batch)]
+
+    def singles():
+        for x, y in rows:
+            ops.join_probe(x, y)
+
+    ms = cuda_time_ms(lambda: ops.join_probe(a, b))
+    singles_ms = cuda_time_ms(singles)
+    plain_ms = cuda_time_ms(lambda: ref.join_probe_ref(a, b))
+    library_ms = cuda_time_ms(lambda: (
+        torch.searchsorted(b, a, out_int32=True),
+        torch.searchsorted(b, a, right=True, out_int32=True)))
+    nbytes = 12 * batch * n_a + 4 * n_b * (batch if per_row else 1)
+    return {"batch": batch, "n_a": n_a, "n_b": n_b,
+            "build": "a build a row" if per_row else "one build",
+            "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "max_abs_err": err}
 
 
 def span_build(rng, n: int, lo: int, span: int) -> torch.Tensor:
@@ -1045,35 +1193,49 @@ def device_table_bytes(eng) -> int:
     return total
 
 
-def serve_suite(eng, queries, timed_reps: int):
+def serve_suite(eng, queries, timed_reps: int, ops, batch_cut=()):
     """Every instance through ``query`` (first pass cold: plans, uploads,
     capacity growth), then ``timed_reps`` warm passes, then each
-    template's instances through ``query_batch``, which must equal the
-    single results.  Returns per-template timings."""
-    stats = {}
+    template's instances through ``query_batch`` (one launch sequence,
+    padded to its bucket shape), which must equal the single results;
+    ``batch_cut`` templates skip the batch (it does not fit the card at
+    this scale).  Returns per-template timings, the join-probe launches
+    of one warm query and the batch's peak device memory, and the peak
+    over the whole call (the batches' peaks are read after a reset)."""
+    stats, overall = {}, 0
     for name, insts in queries.items():
         t0 = time.perf_counter()
         single = [eng.query(q) for q in insts]
         cold_ms = (time.perf_counter() - t0) * 1e3
         lat = []
+        before = ops.launches["join_probe"]
         for _ in range(timed_reps):
             for q in insts:
                 t = time.perf_counter()
                 eng.query(q)
                 lat.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        batched = eng.query_batch(insts)
-        batch_ms = (time.perf_counter() - t) * 1e3
-        for a, b in zip(single, batched):
-            if a.cols != b.cols or not np.array_equal(a.data, b.data):
-                raise AssertionError(f"{name}: query_batch != query")
+        per_query = (ops.launches["join_probe"] - before) / \
+            max(timed_reps * len(insts), 1)
+        batch_ms, peak = None, None
+        if name not in batch_cut:
+            overall = max(overall, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            batched = eng.query_batch(insts)
+            batch_ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for a, b in zip(single, batched):
+                if a.cols != b.cols or not np.array_equal(a.data, b.data):
+                    raise AssertionError(f"{name}: query_batch != query")
+            del batched
         for r in single:
             if r.data.dtype != np.int32 or r.data.shape[1] != len(r.cols):
                 raise AssertionError(f"{name}: malformed result")
         stats[name] = {"rows": [len(r) for r in single],
-                       "cold_ms": cold_ms, "lat": lat, "batch_ms": batch_ms}
-        del single, batched
-    return stats
+                       "cold_ms": cold_ms, "lat": lat, "batch_ms": batch_ms,
+                       "batch_peak_gib": peak, "probes_per_query": per_query}
+        del single
+    return stats, max(overall, torch.cuda.max_memory_allocated())
 
 
 def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
@@ -1100,21 +1262,23 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
     queries = basic_queries(ds.schema, seed=args.seed)
     with ProbeRecorder(jexec) as rec:
         t = time.perf_counter()
-        stats = serve_suite(eng, queries, args.reps)
+        stats, peak = serve_suite(eng, queries, args.reps, ops, BATCH_CUT)
         serve_s = time.perf_counter() - t
     launches = dict(ops.launches)
     no_fallbacks(eng, "main path")
-    peak = torch.cuda.max_memory_allocated()
     log(f"  served {sum(len(v) for v in queries.values())} queries x "
         f"{1 + args.reps} + {len(queries)} batches in {serve_s:.1f} s; "
         f"launches {launches}; tables on the card "
         f"{device_table_bytes(eng) / 2**20:.1f} MiB; peak device memory "
         f"(build and suite) {peak / 2**30:.2f} GiB")
     for name, s in stats.items():
+        batch = "cut (BATCH_CUT)" if s["batch_ms"] is None else (
+            f"{s['batch_ms']:.1f} ms, peak {s['batch_peak_gib']:.2f} GiB")
         log(f"  {name}: rows {s['rows']}, p50 {p(s['lat'], 50):.3f} ms, "
             f"max {max(s['lat']):.3f} ms of {len(s['lat'])} warm queries, "
             f"cold {s['cold_ms']:.1f} ms for {len(s['rows'])}, batch of "
-            f"{len(s['rows'])} {s['batch_ms']:.1f} ms")
+            f"{len(s['rows'])} {batch}; join-probe launches a warm query "
+            f"{s['probes_per_query']:.2f}")
     for name in ("S1", "C1"):
         profile_query(eng, queries[name][0], name)
     # the bucket count runs on the distributed path only (phase 6a)
@@ -1136,6 +1300,10 @@ def phase_main(args, ops, ref, jexec, eb, Dataset, basic_queries):
         f"{json.dumps(path['by_log2_n_a'])}; calls with n_b <= 16384: "
         f"{path['calls_n_b_le_16384']}, <= 32768: "
         f"{path['calls_n_b_le_32768']}")
+    path["probes_per_query"] = {n: s["probes_per_query"]
+                                for n, s in stats.items()}
+    path["batch_peak_gib"] = {n: s["batch_peak_gib"]
+                              for n, s in stats.items()}
     path["largest"] = probe_profile(ref, a, b)
     log(f"  the largest input's keys: {json.dumps(path['largest'])}")
     err = check_probe(ops, ref, a, b, "main-path inputs")
@@ -1816,6 +1984,17 @@ SERVE_INSTANCES = 32
 #: the catalog
 SERVE_CUT = ("C1", "C2")
 SERVE_CUT_INSTANCES = 3
+#: templates whose batch does not fit the card at ``--scale``: a batch
+#: holds every binding's intermediates at once (B times one query's), and
+#: at scale 340 one query of C1 or C2 peaks at 32.3 and 32.5 GiB, so their
+#: 3 instances padded to 4 run out of the card's 79.2 GiB
+#: (tools/batch_memory.py).  Phase 3 runs no ``query_batch`` of them and
+#: phase 7a serves them one instance a batch; phases 4 and 7b at
+#: ``--compare-scale`` batch them.
+BATCH_CUT = ("C1", "C2")
+#: instances a template sends in 7a's second pass, a partial bucket as a
+#: latency-bound flush drains it under light load (padded to 8)
+PARTIAL_INSTANCES = 5
 #: instances a template sends through the distributed server
 SERVE_DIST_INSTANCES = 8
 #: the trace turns serve these with ``trace_cardinality`` off (their
@@ -2100,10 +2279,128 @@ def serve_queries(schema, seed: int, n: int, names, cut=(),
             if k in names}
 
 
-def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
-    """7a at ``--scale`` on the main path's dataset: the server, the
-    trace turns, the estimate planner, the layouts, and the server on
-    the distributed backend at one NCCL rank."""
+class BatchRecorder:
+    """What a served flush does, read off the server's engine: for each
+    template (by signature) its batches (chunks), the attempts of its
+    executor's program with their batch size, the join-probe launches of
+    those attempts, each batch's wall time (``record_latency``, once a
+    chunk) and the peak device memory over its chunks; and for each
+    batched join-probe form and shape the calls, with the inputs of the
+    first call of each B = 32 shape kept for timing.  It calls every
+    wrapper unchanged: launch counts stay the wrappers'."""
+
+    def __init__(self, eng, jexec, ops):
+        self.eng, self.jexec, self.ops = eng, jexec, ops
+        self.groups = {}
+        self.walls = []
+        self.shapes = {}
+        self.inputs = {}
+        self.kept_bytes = 0
+        self._sig = None
+
+    def _group(self, sig, decision, prepared, bindings, traces=None):
+        g = self.groups.setdefault(sig, {"chunks": 0, "attempts": {},
+                                         "probe_launches": 0,
+                                         "peak_gib": 0.0})
+        before = (self.eng.metrics.batches, self.ops.launches["join_probe"])
+        torch.cuda.reset_peak_memory_stats()
+        self._sig = sig
+        try:
+            out = self._inner_group(sig, decision, prepared, bindings,
+                                    traces)
+        finally:
+            self._sig = None
+        g["chunks"] += self.eng.metrics.batches - before[0]
+        g["probe_launches"] += self.ops.launches["join_probe"] - before[1]
+        g["peak_gib"] = max(g["peak_gib"],
+                            torch.cuda.max_memory_allocated() / 2**30)
+        return out
+
+    def _program(self, ex, caps, inp, bounds, fconsts, shared):
+        if self._sig is not None:
+            att = self.groups[self._sig]["attempts"]
+            att[bounds.shape[0]] = att.get(bounds.shape[0], 0) + 1
+        return self._inner_program(ex, caps, inp, bounds, fconsts, shared)
+
+    def _probe(self, a, b):
+        if self._sig is not None and a.dim() == 2:
+            key = (a.shape[0], a.shape[1], b.shape[-1], b.dim() == 2)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            nbytes = (a.numel() + b.numel()) * 4
+            if a.shape[0] == 32 and key not in self.inputs and \
+                    self.kept_bytes + nbytes < 2**31:
+                self.inputs[key] = (a.clone(), b.clone())
+                self.kept_bytes += nbytes
+        return self.inner_probe(a, b)
+
+    def _latency(self, ms, count=1):
+        self.walls.append(ms)
+        return self._inner_latency(ms, count)
+
+    def __enter__(self):
+        eng, cls = self.eng, self.jexec.PlanExecutor
+        self._inner_group = eng._run_group
+        eng._run_group = self._group
+        self._inner_program = cls._program
+        rec = self
+
+        def program(ex, *a):
+            return rec._program(ex, *a)
+
+        cls._program = program
+        self.inner_probe = self.jexec.ops.join_probe
+        self.jexec.ops = _OpsShim(self.jexec.ops, join_probe=self._probe)
+        self._inner_latency = eng.metrics.record_latency
+        eng.metrics.record_latency = self._latency
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.eng
+        del eng._run_group
+        del eng.metrics.record_latency
+        self.jexec.PlanExecutor._program = self._inner_program
+        self.jexec.ops = self.jexec.ops.base
+
+    def most_frequent(self, per_row: bool):
+        """The most frequent B = 32 probe shape of one build form, with
+        its call count, or None."""
+        keys = [k for k in self.shapes if k[0] == 32 and k[3] == per_row
+                and k in self.inputs]
+        if not keys:
+            return None
+        key = max(keys, key=lambda k: (self.shapes[k], k[1] * k[2]))
+        return key, self.shapes[key]
+
+
+def served_batches(rec: BatchRecorder, queries, probes_per_query) -> dict:
+    """Per template: its chunks, program attempts by batch size, the
+    join-probe launches a served attempt against phase 3's a warm query,
+    and the peak device memory of its chunks."""
+    from repro_torch.engine import template_signature
+    out = {}
+    for name, insts in queries.items():
+        g = rec.groups.get(template_signature(insts[0]))
+        if g is None:
+            continue
+        attempts = sum(g["attempts"].values())
+        out[name] = {
+            "instances": len(insts), "chunks": g["chunks"],
+            "attempts_by_batch": {str(b): n for b, n in
+                                  sorted(g["attempts"].items())},
+            "probe_launches": g["probe_launches"],
+            "probes_per_attempt": g["probe_launches"] / max(attempts, 1),
+            "probes_per_query_phase3": probes_per_query.get(name),
+            "peak_gib": g["peak_gib"]}
+    return out
+
+
+def phase_serve(args, ds, eng, queries, ops, ref, jexec, probe_path,
+                here: str) -> dict:
+    """7a at ``--scale`` on the main path's dataset: the server (each
+    bucket one launch sequence, padded to its shape), the batched probe
+    timed on its most frequent served shape, the trace turns, the
+    estimate planner, the layouts, and the server on the distributed
+    backend at one NCCL rank."""
     from repro_torch import RuntimeConfig, SparqlServer
     nums = {}
     # the latency bound at a minute: the server check wants every
@@ -2114,16 +2411,93 @@ def phase_serve(args, ds, eng, queries, ops, here: str) -> dict:
         raise AssertionError("the server does not run on the card")
     sq = serve_queries(ds.schema, 42, SERVE_INSTANCES, queries,
                        SERVE_CUT, SERVE_CUT_INSTANCES)
-    chk = server_check(srv, eng, sq, exact=True)
+    sq = {k: (v[:1] if k in BATCH_CUT else v) for k, v in sq.items()}
+    # the mix, then a pass of partial buckets (a different draw)
+    partial = {k: v for k, v in serve_queries(
+        ds.schema, 43, PARTIAL_INSTANCES, queries).items()
+        if k not in BATCH_CUT}
+    with BatchRecorder(srv.engine, jexec, ops) as rec:
+        chk = server_check(srv, eng, sq, exact=True)
+        mix = srv.metrics.summary()
+        chk_partial = server_check(srv, eng, partial, exact=True)
     no_fallbacks(srv.engine, "server")
     m = srv.metrics.summary()
+    fewer = ", ".join(f"{len(v)} of {k}" for k, v in sq.items()
+                      if len(v) != SERVE_INSTANCES)
     log(f"  server: {chk['requests']} requests ({SERVE_INSTANCES} of each "
-        f"template, {SERVE_CUT_INSTANCES} of {', '.join(SERVE_CUT)}), "
+        f"template; {fewer}), "
         f"interleaved, submitted and flushed in {chk['wall_s']:.1f} s; "
         f"every result equal row for row to Engine.query's; "
-        f"{summary_line(m)}")
-    del m["routed"]
-    nums["server"] = dict(m, check=chk)
+        f"{summary_line(mix)}; padding waste {mix['padding_waste']:.4f}")
+    log(f"  then {chk_partial['requests']} requests in partial buckets "
+        f"({PARTIAL_INSTANCES} of each template but "
+        f"{', '.join(BATCH_CUT) or 'none'}, one flush in "
+        f"{chk_partial['wall_s']:.1f} s), equal row for row; over both "
+        f"passes: {summary_line(m)}; padding waste "
+        f"{m['padding_waste']:.4f}")
+    if m["padding_waste"] <= 0:
+        raise AssertionError("the served buckets were not padded")
+    tuner = srv.engine.tuner.report()
+    if not any(b["launches"] for b in tuner["buckets"].values()):
+        raise AssertionError("the tuner observed no served batch")
+    log(f"  tuner: menu {tuner['menu']}, active {tuner['active']}, "
+        f"retired {json.dumps(tuner['retired'])}; per shape (launches, "
+        f"per-slot ms, occupancy, padding waste): " + ", ".join(
+            f"{k}: ({v['launches']}, {v['per_slot_ms']}, {v['occupancy']}, "
+            f"{v['padding_waste']:.4f})"
+            for k, v in tuner["buckets"].items()
+            if v["launches"] or v["padding_waste"]))
+    per = served_batches(rec, {k: v + partial.get(k, [])
+                               for k, v in sq.items()},
+                         probe_path["probes_per_query"])
+    walls = rec.walls
+    log(f"  batch wall (host clock around each served chunk): "
+        f"{len(walls)} chunks, p50 {p(walls, 50):.3f} ms, p99 "
+        f"{p(walls, 99):.3f} ms, max {max(walls):.3f} ms")
+    for name, v in per.items():
+        log(f"    {name}: {v['instances']} requests, {v['chunks']} chunk(s), "
+            f"attempts by batch {json.dumps(v['attempts_by_batch'])}, "
+            f"join-probe launches {v['probe_launches']} "
+            f"({v['probes_per_attempt']:.2f} an attempt; a warm query of "
+            f"phase 3: {v['probes_per_query_phase3']:.2f}), peak "
+            f"{v['peak_gib']:.2f} GiB")
+    del m["routed"], mix["routed"]
+    nums["server"] = dict(m, mix=mix, check=chk, partial_check=chk_partial,
+                          tuner=tuner, batches=per,
+                          batch_wall_p50_ms=p(walls, 50),
+                          batch_wall_p99_ms=p(walls, 99))
+    timed = {}
+    for per_row in (True, False):
+        top = rec.most_frequent(per_row)
+        if top is None:
+            continue
+        key, count = top
+        a, b = rec.inputs[key]
+        timed["a build a row" if per_row else "one build"] = dict(
+            batched_probe_numbers(ops, ref, a, b), calls_in_flush=count)
+    del rec
+    if not timed:
+        raise AssertionError("no batched join probe of 32 rows was served")
+    for form, v in timed.items():
+        log(f"  batched join_probe on the most frequent served B = 32 step "
+            f"({form}: 32 x {v['n_a']} probe keys, n_b {v['n_b']}, "
+            f"{v['calls_in_flush']} calls in the flush): equal; kernel "
+            f"{v['ms']:.4f} ms, 32 single launches {v['singles_ms']:.4f} "
+            f"ms, plain {v['plain_ms']:.4f} ms, batched torch.searchsorted "
+            f"x2 {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms")
+    nums["batched_probe"] = timed
+    serve_cut = [k for k in SERVE_CUT if k not in BATCH_CUT]
+    nums["reduced"] = [
+        f"{', '.join(serve_cut)} served at {SERVE_CUT_INSTANCES} instances "
+        f"(a result of 10^8 rows does not fit 32 times beside the catalog)"
+    ] if serve_cut else []
+    if BATCH_CUT:
+        nums["reduced"].append(
+            f"{', '.join(BATCH_CUT)} at one instance a batch in 7a, none in "
+            f"its partial pass, and no phase-3 batch of them: their batch "
+            f"does not fit the card at scale {args.scale} (BATCH_CUT)")
+    for line in nums["reduced"]:
+        log(f"  reduced: {line}")
 
     tr = trace_turns(srv.engine, queries, here)
     log(f"  trace turns ({tr['requests_per_pass']} requests a pass, then "
@@ -2519,7 +2893,9 @@ def served_auto(srv, eng, ds, queries) -> dict:
     default ``router_probe_every`` of 32, every batch group crosses a
     probe boundary and the router sends the whole batch to the losing
     backend, which the pass measures.  The second turns the probes off.
-    Then the Prometheus page's router and tuner families are printed."""
+    Then the Prometheus page's router and tuner families are printed;
+    the tuner's per-slot times must be among them (the torch seat's
+    batches are one launch sequence, which the tuner measures)."""
     out = {}
     cfg = srv.engine.config
     base = [n for n in queries if n not in AUTO_SMALL_ONLY]
@@ -2549,6 +2925,10 @@ def served_auto(srv, eng, ds, queries) -> dict:
                     for ln in fams):
         raise AssertionError("the Prometheus page lacks the router or "
                              "tuner families")
+    # the torch seat's batches are one launch sequence: the tuner has
+    # measured them
+    if not any(ln.startswith("repro_tuner_per_slot_ms") for ln in fams):
+        raise AssertionError("the tuner families do not move")
     for ln in fams:
         log(f"    {ln[:200]}")
     out["prometheus_lines"] = len(fams)
@@ -2597,6 +2977,7 @@ def main() -> int:
         f"{time.perf_counter() - t:.1f} s")
     stage("[2] kernels against their plain versions")
     phase_kernels(ops, ref)
+    batched = phase_batched_probe(ops, ref)
     phase_semijoin_kernel(ops, ref)
     phase_bucket_kernel(ops, ref)
     stage("[3] main path")
@@ -2612,7 +2993,8 @@ def main() -> int:
         Engine, here)
     stage(f"[7a] the serving surface at scale {args.scale}")
     ops.reset_launches()
-    serve = phase_serve(args, ds, eng, queries, ops, here)
+    serve = phase_serve(args, ds, eng, queries, ops, ref, jexec, probe_path,
+                        here)
     serve_launches = dict(ops.launches)
     stage(f"[8a] the adaptive runtime and the host engine at scale "
           f"{args.scale}")
@@ -2689,6 +3071,9 @@ def main() -> int:
         "results_equal": [r["results_equal"] for r in ranks]}}}),
         flush=True)
     print(json.dumps({"join_probe_path": probe_path}), flush=True)
+    print(json.dumps({"join_probe_batched": dict(
+        batched, served_step=serve["batched_probe"],
+        launches_by_template=serve["server"]["batches"])}), flush=True)
     print(json.dumps({"phase7": serve}), flush=True)
     print(json.dumps({"phase8": adaptive}), flush=True)
 

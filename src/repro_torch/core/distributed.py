@@ -70,6 +70,33 @@ __all__ = ["DistBindings", "DistributedExecutor", "shard_table",
            "repartition", "extvp_pair_masks_sharded", "exchanges",
            "reset_exchanges"]
 
+
+
+# This executor runs its bindings in turn.  The jexec operators take a
+# batch of bindings (a leading axis on every relation), so each shard-local
+# relation enters them as a batch of one and leaves as row 0.
+
+def _one(cols, data: torch.Tensor, n: torch.Tensor) -> JBindings:
+    """A shard-local relation as a batch of one binding."""
+    return JBindings(cols, data[None], n.reshape(1), _false(data.device, 1))
+
+
+def _first(b: JBindings) -> JBindings:
+    """Row 0 of a batch of one, as a shard-local relation."""
+    return JBindings(b.cols, b.data[0], b.n[0], b.overflow[0])
+
+
+def _compact1(data: torch.Tensor, keep: torch.Tensor, out_cap: int):
+    """:func:`~repro_torch.core.jexec._compact` of one relation."""
+    out, n, ovf = _compact(data, keep[None], out_cap)
+    return out[0], n[0], ovf[0]
+
+
+def _scan1(scan, *args):
+    """A jexec scan of one binding: its batch-of-one result, row 0."""
+    data, n, ovf = scan(*args)
+    return data[0], n[0], ovf[0]
+
 _I32 = torch.int32
 _I64 = torch.int64
 
@@ -192,7 +219,7 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
     me = dist.get_rank(group)
     placed = torch.clamp(counts, max=bucket_cap)
     sent = placed.sum() - placed[me]
-    out, n_out, ovf = _compact(recv, recv[:, 0] != PAD, out_cap)
+    out, n_out, ovf = _compact1(recv, recv[:, 0] != PAD, out_cap)
     return out, n_out, overflow | ovf, sent
 
 
@@ -409,15 +436,15 @@ class DistributedExecutor:
             s_b, p_b, o_b, eqs, take, cols = _tt_meta(tp)
             sb = bounds[i, 0] if s_b is not None else None
             ob = bounds[i, 1] if o_b is not None else None
-            data, n, ovf = device_scan_tt(rows, nrows, sb, p_b, ob,
-                                          eqs, take, rows.shape[0])
+            data, n, ovf = _scan1(device_scan_tt, rows, nrows, sb, p_b, ob,
+                                  eqs, take, rows.shape[0])
             part_var = tp.s if is_var(tp.s) else None
             return DistBindings(cols, data, n, ovf, part_var)
         s_bound, o_bound, same, take, cols = _step_meta(step)
-        data, n, ovf = device_scan(rows, nrows,
-                                   bounds[i, 0] if s_bound is not None else None,
-                                   bounds[i, 1] if o_bound is not None else None,
-                                   same, take, rows.shape[0])
+        data, n, ovf = _scan1(device_scan, rows, nrows,
+                              bounds[i, 0] if s_bound is not None else None,
+                              bounds[i, 1] if o_bound is not None else None,
+                              same, take, rows.shape[0])
         copy = self.scan_copy[i]
         part_var = None
         if copy == "s" and is_var(tp.s):
@@ -475,8 +502,8 @@ class DistributedExecutor:
         if isinstance(seg, FilterSeg):
             d = self._eval_seg(seg.child, caps, inp, bounds, fconsts, ctr,
                                ovfs, sent, shared)
-            jb = device_filter(JBindings(d.cols, d.data, d.n, no),
-                               seg.expr, values, fconsts, ctr)
+            jb = _first(device_filter(_one(d.cols, d.data, d.n),
+                                      seg.expr, values, fconsts, ctr))
             return DistBindings(jb.cols, jb.data, jb.n, no, d.part_key)
         left = self._eval_seg(seg.left, caps, inp, bounds, fconsts, ctr,
                               ovfs, sent, shared)
@@ -499,8 +526,10 @@ class DistributedExecutor:
         capacity slot (this rank's), rows sent)``.  Like
         :meth:`repro_torch.core.jexec.PlanExecutor._program`, overflow is
         reported per capacity slot so the host retry doubles only the
-        overflowing capacities."""
+        overflowing capacities.  ``fconsts`` is the binding's ``(n_fc,)``
+        vector; the operators read it as a batch of one."""
         no = _false(self.device)
+        fconsts = fconsts.reshape(1, -1)
         ctr = [0]
         ovfs: List[torch.Tensor] = [no] * self._n_pipeline
         sent: List[torch.Tensor] = []
@@ -511,23 +540,24 @@ class DistributedExecutor:
 
         # shard-local modifiers: FILTER masks (+ projection when no
         # global modifier needs the un-projected sort keys)
-        jb = JBindings(acc.cols, acc.data, acc.n, no)
+        jb = _one(acc.cols, acc.data, acc.n)
         for expr in self.spine.filters:
             jb = device_filter(jb, expr, inp.values, fconsts, ctr)
         if not self.gathered:
-            jb = device_project(jb, self._out_vars)
+            jb = _first(device_project(jb, self._out_vars))
             return jb.data, jb.n, self._flags(ovfs), total_sent
         if self._mod_resize:
             jb, mod_ovf = device_resize(jb, caps[self._n_pipeline])
-            ovfs = ovfs + [mod_ovf]
+            ovfs = ovfs + [mod_ovf[0]]
+        jb = _first(jb)
 
         # global modifiers: gather the (capacity-bounded) shard results,
         # compact, then ORDER BY → project → DISTINCT → OFFSET/LIMIT
         # replicated (ordering before projection, as on the host paths) —
         # only the final n ≤ limit rows ever reach the host
         gdata, keep, _ = self._gather_relation(jb.data, jb.n)
-        cdata, cn, _ = _compact(gdata, keep, gdata.shape[0])
-        gb = JBindings(jb.cols, cdata, cn, no)
+        cdata, cn, _ = _compact1(gdata, keep, gdata.shape[0])
+        gb = _one(jb.cols, cdata, cn)
         if self.spine.order:
             gb = device_order(gb, self.spine.order, inp.values)
         gb = device_project(gb, self._out_vars)
@@ -535,6 +565,7 @@ class DistributedExecutor:
             gb = device_distinct(gb)
         if self.spine.has_slice:
             gb = device_slice(gb, self.spine.offset, self.spine.limit)
+        gb = _first(gb)
         return gb.data, gb.n, self._flags(ovfs), total_sent
 
     def _flags(self, ovfs: List[torch.Tensor]) -> torch.Tensor:
@@ -559,7 +590,7 @@ class DistributedExecutor:
         """Gather a shard-local relation to every rank, valid rows first
         (the reference's ``_allgather_relation``)."""
         gdata, keep, n_tot = self._gather_relation(b.data, b.n)
-        data, _, _ = _compact(gdata, keep, gdata.shape[0])
+        data, _, _ = _compact1(gdata, keep, gdata.shape[0])
         return data, n_tot
 
     def _dist_join(self, a: DistBindings, b: DistBindings, out_cap: int,
@@ -567,19 +598,18 @@ class DistributedExecutor:
         """Join two shard-local relations; the returned ``overflow`` is
         this step's OWN flag (repartition bucket/compact + join output) —
         input flags are not propagated, the caller tracks them per step."""
-        no = _false(self.device)
         shared = [c for c in a.cols if c in b.cols]
         if not shared:
             # cross join: gather the (small) b side everywhere, then local
             b_all, bn_all = self._allgather_relation(b)
-            jb = device_join(JBindings(a.cols, a.data, a.n, no),
-                             JBindings(b.cols, b_all, bn_all, no), out_cap)
+            jb = _first(device_join(_one(a.cols, a.data, a.n),
+                                    _one(b.cols, b_all, bn_all), out_cap))
             return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
                                 a.part_key)
         key = shared[0]
         da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
-        jb = device_join(JBindings(a.cols, da, na, no),
-                         JBindings(b.cols, db, nb, no), out_cap)
+        jb = _first(device_join(_one(a.cols, da, na), _one(b.cols, db, nb),
+                                out_cap))
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
 
     def _co_partition(self, a: DistBindings, b: DistBindings, key: str,
@@ -611,20 +641,19 @@ class DistributedExecutor:
         tail is computed shard-locally too; without one the (small) b
         side is gathered everywhere — either way the per-shard row sets
         partition the global left-outer-join result exactly."""
-        no = _false(self.device)
         shared = [c for c in a.cols if c in b.cols]
         if not shared:
             b_all, bn_all = self._allgather_relation(b)
-            jb = device_left_join(JBindings(a.cols, a.data, a.n, no),
-                                  JBindings(b.cols, b_all, bn_all, no),
-                                  out_cap, expr, values, fconsts, ctr)
+            jb = _first(device_left_join(
+                _one(a.cols, a.data, a.n), _one(b.cols, b_all, bn_all),
+                out_cap, expr, values, fconsts, ctr))
             return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
                                 a.part_key)
         key = shared[0]
         da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
-        jb = device_left_join(JBindings(a.cols, da, na, no),
-                              JBindings(b.cols, db, nb, no),
-                              out_cap, expr, values, fconsts, ctr)
+        jb = _first(device_left_join(_one(a.cols, da, na),
+                                     _one(b.cols, db, nb),
+                                     out_cap, expr, values, fconsts, ctr))
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
 
     def _dist_union(self, a: DistBindings, b: DistBindings,
@@ -633,9 +662,8 @@ class DistributedExecutor:
         its slices of both operands.  The partition key survives only
         when both sides are partitioned by the SAME variable (rows keep
         satisfying key % S == rank)."""
-        no = _false(self.device)
-        jb = device_union(JBindings(a.cols, a.data, a.n, no),
-                          JBindings(b.cols, b.data, b.n, no), out_cap)
+        jb = _first(device_union(_one(a.cols, a.data, a.n),
+                                 _one(b.cols, b.data, b.n), out_cap))
         pk = a.part_key if (a.part_key is not None
                             and a.part_key == b.part_key) else None
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow, pk)

@@ -13,6 +13,12 @@ eagerly on one device.  Nothing is traced or compiled; the static
 capacities remain because they keep every operator free of host syncs —
 the host syncs once per launch, for the overflow flags and the row count.
 
+Every operator carries a leading batch axis: a relation is ``data[B,
+cap, k]``, ``n[B]``, ``overflow[B]``, one row per constant-binding of a
+query template, so B bindings run as one launch sequence — the
+reference's ``jax.vmap`` over its program, written out with explicit
+batch indices.  A single request is a batch of one.
+
 Join algorithm: sort-merge.  The build side is key-sorted (stable), each
 probe key finds its lower bound and match count in the sorted build
 column through the hand-written join-probe kernel
@@ -184,138 +190,208 @@ def prepare_value_keys(catalog: Optional[Catalog], spine: ModifierSpine,
 
 @dataclass
 class JBindings:
-    """Static-capacity relation: cols are host metadata, the rest lives
-    on the device."""
+    """Static-capacity relations of a batch of B bindings: cols are host
+    metadata, the rest lives on the device.  Row b of ``data`` is binding
+    b's relation: its valid rows at ``[0, n[b])``, PAD rows behind."""
 
     cols: Tuple[str, ...]
-    data: torch.Tensor       # (cap, k) int32
-    n: torch.Tensor          # () int32
-    overflow: torch.Tensor   # () bool — sticky across operators
+    data: torch.Tensor       # (B, cap, k) int32
+    n: torch.Tensor          # (B,) int32
+    overflow: torch.Tensor   # (B,) bool — sticky across operators
 
     @property
     def capacity(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def batch(self) -> int:
         return self.data.shape[0]
 
 
-def _false(device) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.bool, device=device)
+def _false(device, *shape) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.bool, device=device)
 
 
-def _scalar(v: int, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=_I32, device=device)
+def _scalar(v: int, device, *shape) -> torch.Tensor:
+    return torch.full(shape, v, dtype=_I32, device=device)
 
 
 def _valid_mask(cap: int, n: torch.Tensor) -> torch.Tensor:
-    return torch.arange(cap, dtype=_I32, device=n.device) < n
+    """``(..., cap)``: row i is valid iff ``i < n`` (``n`` () or (B,))."""
+    return torch.arange(cap, dtype=_I32, device=n.device) < n.unsqueeze(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _rows(batch: int, device) -> torch.Tensor:
+    """(B, 1) batch index: the first index of a per-binding gather (one
+    per batch size and device, made once: a query's operators would
+    otherwise launch one each)."""
+    return torch.arange(batch, device=device)[:, None]
+
+
+def _broadcast(b: JBindings, batch: int) -> JBindings:
+    """A relation every binding shares (a scan that binds no constant is
+    one relation, batch 1) as a batch of ``batch`` rows: views, no copy."""
+    if b.batch == batch:
+        return b
+    return JBindings(b.cols, b.data.expand(batch, -1, -1),
+                     b.n.expand(batch), b.overflow.expand(batch))
 
 
 def _compact(data: torch.Tensor, keep: torch.Tensor, out_cap: int,
              fill: int = PAD
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Move keep-rows to the front (stable); returns (data, n, overflow).
-    A kept row's slot is its rank among the kept rows (an inclusive
-    prefix sum), so this is the stable partition of the reference's
-    argsort without the sort; rows past ``out_cap`` and dropped rows go
-    to a dump row that is cut off."""
-    k = data.shape[1]
-    n_keep = keep.sum(dtype=_I32)
-    pos = torch.cumsum(keep, 0, dtype=_I32) - 1
+    """Move each binding's keep-rows to its front (stable); returns
+    ``(data (B, out_cap, k), n (B,), overflow (B,))``.  ``keep`` is
+    ``(B, R)``; ``data`` is ``(B, R, k)``, or ``(R, k)`` when every
+    binding selects from one table.  A kept row's slot is its rank among
+    its binding's kept rows (an inclusive prefix sum along the row), so
+    this is the stable partition of the reference's argsort without the
+    sort; dropped rows and rows past ``out_cap`` go to a dump slot that
+    is cut off.  Rows are scattered to their slots; when B bindings
+    select from one table the scatter writes row numbers instead, and
+    one gather fetches the kept rows, so the table is never copied B
+    times."""
+    batch, r = keep.shape
+    k = data.shape[-1]
+    dev = keep.device
+    n_keep = keep.sum(1, dtype=_I32)
+    pos = torch.cumsum(keep, 1, dtype=_I32) - 1
     dest = torch.where(keep & (pos < out_cap), pos, out_cap)
-    out = torch.full((out_cap + 1, k), fill, dtype=data.dtype,
-                     device=data.device)
-    out[dest] = data
-    return out[:out_cap], torch.clamp(n_keep, max=out_cap), n_keep > out_cap
+    if batch > 1:
+        # flat slots: int64 once the batch's buffer passes int32
+        flat = torch.int64 if batch * (out_cap + 1) > 2**31 - 1 else _I32
+        dest = dest.to(flat) + torch.arange(
+            0, batch * (out_cap + 1), out_cap + 1, dtype=flat,
+            device=dev)[:, None]
+    if data.dim() == 3 or batch == 1 or r == 0:
+        out = torch.full((batch * (out_cap + 1), k), fill, dtype=data.dtype,
+                         device=dev)
+        out[dest.reshape(-1)] = data.reshape(batch * r, k) \
+            if data.dim() == 3 else data
+    else:
+        src = torch.full((batch * (out_cap + 1),), r, dtype=_I32,
+                         device=dev)
+        src[dest.reshape(-1)] = torch.arange(r, dtype=_I32,
+                                             device=dev).repeat(batch)
+        live = src < r
+        out = torch.where(live[:, None], data[torch.where(live, src, 0)],
+                          fill)
+    out = out.view(batch, out_cap + 1, k)[:, :out_cap]
+    return out, torch.clamp(n_keep, max=out_cap), n_keep > out_cap
+
+
+def _selected(rows: torch.Tensor, n: torch.Tensor,
+              eqs_to: Sequence[Tuple[int, torch.Tensor]]) -> torch.Tensor:
+    """``(B', cap)`` keep-mask of a table scan: valid rows whose column
+    ``c`` equals the binding's constant for each ``(c, consts)`` of
+    ``eqs_to`` (``consts`` a (B,) column, or a scalar for a batch of
+    one); B' is 1 when no constant is bound."""
+    keep = _valid_mask(rows.shape[0], n)[None]
+    for c, consts in eqs_to:
+        keep = keep & (rows[:, c] == consts.reshape(-1, 1))
+    return keep
 
 
 def device_scan(rows: torch.Tensor, n: torch.Tensor, s_bound, o_bound,
                 same_var: bool, out_cols: Sequence[int], out_cap: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Select + project one (s, o) table (Algorithm 2, device form).
-    ``s_bound``/``o_bound`` are ``None`` (statically unbound) or an int32
-    device scalar, so one executor serves every instantiation of a query
-    template (constant re-binding)."""
-    cap = rows.shape[0]
-    keep = _valid_mask(cap, n)
-    if s_bound is not None:
-        keep &= rows[:, 0] == s_bound
-    if o_bound is not None:
-        keep &= rows[:, 1] == o_bound
+    """Select + project one (s, o) table (Algorithm 2, device form) for
+    every binding of a batch.  ``s_bound``/``o_bound`` are ``None``
+    (statically unbound) or the batch's (B,) int32 device column of
+    constants, so one executor serves every instantiation of a query
+    template (constant re-binding).  Returns ``(data, n, overflow)`` of
+    batch B, or of batch 1 when no constant is bound (every binding
+    selects the same rows)."""
+    keep = _selected(rows, n, [(c, v) for c, v in ((0, s_bound),
+                                                    (1, o_bound))
+                               if v is not None])
     if same_var:
-        keep &= rows[:, 0] == rows[:, 1]
+        keep = keep & (rows[:, 0] == rows[:, 1])
     projected = rows[:, list(out_cols)] if out_cols else rows[:, :0]
     return _compact(projected, keep, out_cap)
 
 
 def build_key(b: JBindings, key_col: int) -> torch.Tensor:
-    """The build-side join-key column with NULL/pad sentinels applied —
-    the input of the build-side sort.  Exposed so a batched run can
-    presort a *shared* (bounds-independent) build relation once and reuse
-    it for every batch element (see ``device_join``'s ``b_presorted``)."""
-    kb = b.data[:, key_col]
+    """The build-side join-key column ``(B, cap)`` with NULL/pad
+    sentinels applied — the input of the build-side sort.  Exposed so a
+    batched run can presort a *shared* (bounds-independent) build
+    relation once and reuse it for every batch element (see
+    ``device_join``'s ``b_presorted``)."""
+    kb = b.data[:, :, key_col]
     kb = torch.where(kb == UNBOUND, B_NULL, kb)
     return torch.where(_valid_mask(b.capacity, b.n), kb, B_SENT)
 
 
 def _presort(kb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order_b, kb_sorted): the stable ascending order of a build key
-    (equal keys keep their row order, which sets the output row order)."""
-    order_b = torch.argsort(kb, stable=True).to(_I32)
-    return order_b, kb[order_b]
+    along its last axis (equal keys keep their row order, which sets the
+    output row order): ``(cap,)`` for a build every binding shares,
+    ``(B, cap)`` for one build a binding."""
+    order = torch.argsort(kb, dim=-1, stable=True)
+    return order.to(_I32), torch.gather(kb, -1, order)
 
 
 def device_scan_windowed(rows: torch.Tensor, n: torch.Tensor, s_bound,
                          out_cols: Sequence[int], out_cap: int,
                          s_col: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Bound-subject scan over a subject-sorted table: the matching rows
-    are one contiguous window found by binary search and need no compact,
-    so the cost is O(log T + out_cap) instead of a full-table mask and
-    compact.  PAD rows sort after every valid id, so the search never
-    needs the valid count.  Only usable without an object post-filter:
-    overflow is the raw window width vs ``out_cap``.  ``s_col`` is the
-    table's contiguous subject column (uploaded once with the table);
-    without it the column is copied out of ``rows``."""
+    """Bound-subject scan over a subject-sorted table: each binding's
+    matching rows are one contiguous window found by binary search and
+    need no compact, so the cost is O(B log T + B out_cap) instead of a
+    full-table mask and compact.  ``s_bound`` holds the batch's subjects
+    ((B,), or a scalar for a batch of one).  PAD rows sort after every
+    valid id, so the search never needs the valid count.  Only usable
+    without an object post-filter: overflow is the raw window width vs
+    ``out_cap``.  ``s_col`` is the table's contiguous subject column
+    (uploaded once with the table); without it the column is copied out
+    of ``rows``."""
     cap = rows.shape[0]
+    dev = rows.device
     col = rows[:, 0].contiguous() if s_col is None else s_col
-    sb = torch.as_tensor(s_bound, dtype=_I32, device=rows.device).reshape(1)
-    lo = torch.searchsorted(col, sb, out_int32=True)[0]
-    hi = torch.searchsorted(col, sb, right=True, out_int32=True)[0]
-    idx = lo + torch.arange(out_cap, dtype=_I32, device=rows.device)
-    keep = idx < hi
+    sb = torch.as_tensor(s_bound, dtype=_I32, device=dev).reshape(-1) \
+        .contiguous()
+    lo = torch.searchsorted(col, sb, out_int32=True)
+    hi = torch.searchsorted(col, sb, right=True, out_int32=True)
+    idx = lo[:, None] + torch.arange(out_cap, dtype=_I32, device=dev)
+    keep = idx < hi[:, None]
     g = rows[torch.clamp(idx, 0, cap - 1)]
-    projected = g[:, list(out_cols)] if out_cols else g[:, :0]
-    data = torch.where(keep[:, None], projected, PAD)
+    projected = g[..., list(out_cols)] if out_cols else g[..., :0]
+    data = torch.where(keep[..., None], projected, PAD)
     return data, torch.clamp(hi - lo, max=out_cap), hi - lo > out_cap
 
 
 def _join_expand(a: JBindings, b: JBindings, out_cap: int,
                  b_presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Shared expansion machinery of the join family: pair every probe
-    row with its build-side matches into ``out_cap`` output slots.
+    row with its build-side matches into ``out_cap`` output slots, in
+    each binding of the batch.
 
     Returns ``(out_cols, data, a_idx, valid, total, needs_compact)``:
-    ``a_idx[j]`` is the probe row that produced slot ``j``, ``valid`` the
-    kept-slot mask, ``total`` the true (uncapped) match count.  When
-    ``needs_compact`` is False the valid slots are already contiguous at
-    the front (``valid == j < total``)."""
+    ``a_idx[b, j]`` is the probe row that produced slot ``j`` of binding
+    ``b``, ``valid`` the kept-slot mask, ``total`` the true (uncapped)
+    match count per binding.  When ``needs_compact`` is False the valid
+    slots are already contiguous at the front (``valid == j < total``).
+    A ``b_presorted`` build key of shape ``(cap_b,)`` is one build every
+    binding shares: the probe then takes one build for the batch."""
     shared = [c for c in a.cols if c in b.cols]
     b_only = [c for c in b.cols if c not in a.cols]
     out_cols = a.cols + tuple(b_only)
     dev = a.data.device
+    rows = _rows(a.batch, dev)
 
     cap_a, cap_b = a.capacity, b.capacity
     j = torch.arange(out_cap, dtype=_I32, device=dev)
     if not shared:  # cross join (rare; bounded by caps)
-        bn = torch.clamp(b.n, min=1)
+        bn = torch.clamp(b.n, min=1)[:, None]
         a_idx = torch.clamp(j // bn, 0, cap_a - 1)
-        b_idx = j % bn
+        b_idx = torch.clamp(j % bn, 0, cap_b - 1)
         total = a.n * b.n
-        valid = j < total
-        data = torch.cat(
-            [a.data[a_idx], b.data[torch.clamp(b_idx, 0, cap_b - 1)]], dim=1)
+        valid = j < total[:, None]
+        data = torch.cat([a.data[rows, a_idx], b.data[rows, b_idx]], dim=2)
         return out_cols, data, a_idx, valid, total, False
 
-    ka = a.data[:, a.cols.index(shared[0])]
+    ka = a.data[:, :, a.cols.index(shared[0])]
     ka = torch.where(ka == UNBOUND, A_NULL, ka)
     ka = torch.where(_valid_mask(cap_a, a.n), ka, A_SENT)
     if b_presorted is None:
@@ -323,38 +399,41 @@ def _join_expand(a: JBindings, b: JBindings, out_cap: int,
     else:
         order_b, kb_sorted = b_presorted
     lo, cnt = ops.join_probe(ka.contiguous(), kb_sorted.contiguous())
-    ends = torch.cumsum(cnt, 0, dtype=_I32)      # inclusive prefix
+    ends = torch.cumsum(cnt, 1, dtype=_I32)      # inclusive prefix
     prefix = ends - cnt                          # exclusive prefix
-    total = ends[-1]
+    total = ends[:, -1]
 
     # rank search: which probe row produced output slot j
-    a_idx = torch.searchsorted(ends, j, right=True, out_int32=True)
+    a_idx = torch.searchsorted(ends, j.expand(a.batch, out_cap).contiguous(),
+                               right=True, out_int32=True)
     a_idx = torch.clamp(a_idx, 0, cap_a - 1)
-    off = j - prefix[a_idx]
-    b_pos = torch.clamp(lo[a_idx] + off, 0, cap_b - 1)
-    b_idx = order_b[b_pos]
-    valid = j < total
+    off = j - prefix[rows, a_idx]
+    b_pos = torch.clamp(lo[rows, a_idx] + off, 0, cap_b - 1)
+    b_idx = order_b[b_pos] if order_b.dim() == 1 else order_b[rows, b_pos]
+    valid = j < total[:, None]
 
-    left = a.data[a_idx]
-    right = b.data[b_idx]
+    # the probe rows, and of the build rows only the columns the join
+    # reads: the shared ones beyond the key, then the build-only ones
+    data = a.data[rows, a_idx]
+    need = [b.cols.index(c) for c in shared[1:] + b_only]
+    right = b.data[rows[..., None], b_idx[..., None],
+                   torch.tensor(need, device=dev)] if need else None
 
     # post-filter shared columns beyond the key (SQL NULL semantics)
-    for c in shared[1:]:
-        va = left[:, a.cols.index(c)]
-        vb = right[:, b.cols.index(c)]
-        valid &= (va == vb) & (va != UNBOUND)
+    for i, c in enumerate(shared[1:]):
+        va = data[..., a.cols.index(c)]
+        valid &= (va == right[..., i]) & (va != UNBOUND)
 
-    pieces = [left]
     if b_only:
-        pieces.append(right[:, [b.cols.index(c) for c in b_only]])
-    data = torch.cat(pieces, dim=1)
+        data = torch.cat([data, right[..., len(shared) - 1:]], dim=2)
     return out_cols, data, a_idx, valid, total, bool(shared[1:])
 
 
 def device_join(a: JBindings, b: JBindings, out_cap: int,
                 b_presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> JBindings:
-    """Natural join of two static relations (sort-merge, rank expansion).
+    """Natural join of two static relations (sort-merge, rank expansion),
+    binding by binding.
 
     ``b_presorted`` is an optional ``(order_b, kb_sorted)`` pair from
     :func:`build_key` + stable sort, letting a batched run hoist the
@@ -365,10 +444,11 @@ def device_join(a: JBindings, b: JBindings, out_cap: int,
     if needs_compact:
         data, n, ovf = _compact(data, valid, out_cap)
     else:
-        # matches are contiguous at j < total: masking replaces the compact
-        data = torch.where(valid[:, None], data, PAD)
+        # matches are contiguous at j < total: masking replaces the
+        # compact (in place: ``data`` is the expansion's own buffer)
+        data.masked_fill_(~valid[..., None], PAD)
         n = torch.clamp(total, max=out_cap).to(_I32)
-        ovf = _false(data.device)
+        ovf = _false(data.device, a.batch)
     return JBindings(out_cols, data, n,
                      a.overflow | b.overflow | ovf | (total > out_cap))
 
@@ -378,33 +458,35 @@ def device_left_join(a: JBindings, b: JBindings, out_cap: int,
                      values: Optional[torch.Tensor] = None,
                      fconsts: Optional[torch.Tensor] = None,
                      ctr: Optional[List[int]] = None) -> JBindings:
-    """OPTIONAL: left-outer join.  Inner rows first (probe-major, build
-    rows in original order — the natural-join order), then each
-    unmatched probe row once, UNBOUND-padded on the build-only columns,
-    in probe order — the host ``left_outer_join`` sequence.
+    """OPTIONAL: left-outer join.  In each binding, inner rows first
+    (probe-major, build rows in original order — the natural-join
+    order), then each unmatched probe row once, UNBOUND-padded on the
+    build-only columns, in probe order — the host ``left_outer_join``
+    sequence.
 
     ``expr`` is OPTIONAL's join condition: it filters the INNER rows
     only (a probe row whose matches all fail the condition comes out
     unmatched), with constants riding the shared runtime ``fconsts``."""
     out_cols, data, a_idx, valid, total, _ = _join_expand(a, b, out_cap)
-    cap_a = a.capacity
+    batch, cap_a = a.batch, a.capacity
     dev = data.device
     if expr is not None:
-        inner = JBindings(out_cols, data, _scalar(out_cap, dev), _false(dev))
+        inner = JBindings(out_cols, data, _scalar(out_cap, dev, batch),
+                          _false(dev, batch))
         valid = valid & _filter_mask(expr, inner, values, fconsts, ctr)
 
     # matched set: scatter hit flags through a_idx (invalid slots are
     # routed to a dump slot so clipped indices cannot pollute the flags)
-    hit = torch.zeros((cap_a + 1,), dtype=torch.bool, device=dev)
-    hit[torch.where(valid, a_idx, cap_a)] = True
-    unmatched = _valid_mask(cap_a, a.n) & ~hit[:cap_a]
+    hit = torch.zeros((batch, cap_a + 1), dtype=torch.bool, device=dev)
+    hit[_rows(batch, dev), torch.where(valid, a_idx, cap_a)] = True
+    unmatched = _valid_mask(cap_a, a.n) & ~hit[:, :cap_a]
 
     k_b = len(out_cols) - len(a.cols)
     tail = a.data if not k_b else torch.cat(
-        [a.data, torch.full((cap_a, k_b), UNBOUND, dtype=_I32, device=dev)],
-        dim=1)
-    buf = torch.cat([data, tail], dim=0)
-    keep = torch.cat([valid, unmatched])
+        [a.data, torch.full((batch, cap_a, k_b), UNBOUND, dtype=_I32,
+                            device=dev)], dim=2)
+    buf = torch.cat([data, tail], dim=1)
+    keep = torch.cat([valid, unmatched], dim=1)
     out, n, ovf = _compact(buf, keep, out_cap)
     # total > out_cap also voids the matched-set computation (cut slots
     # never set their hit flag), so the overflow retry covers it
@@ -421,16 +503,16 @@ def device_union(a: JBindings, b: JBindings, out_cap: int) -> JBindings:
     def lift(x: JBindings) -> torch.Tensor:
         cap = x.capacity
         if not cols:
-            return x.data[:, :0]
-        arrs = [x.data[:, x.cols.index(c)] if c in x.cols
-                else torch.full((cap,), UNBOUND, dtype=_I32,
+            return x.data[:, :, :0]
+        arrs = [x.data[:, :, x.cols.index(c)] if c in x.cols
+                else torch.full((x.batch, cap), UNBOUND, dtype=_I32,
                                 device=x.data.device) for c in cols]
-        d = torch.stack(arrs, dim=1)
-        return torch.where(_valid_mask(cap, x.n)[:, None], d, PAD)
+        d = torch.stack(arrs, dim=2)
+        return torch.where(_valid_mask(cap, x.n)[..., None], d, PAD)
 
-    buf = torch.cat([lift(a), lift(b)], dim=0)
+    buf = torch.cat([lift(a), lift(b)], dim=1)
     keep = torch.cat([_valid_mask(a.capacity, a.n),
-                      _valid_mask(b.capacity, b.n)])
+                      _valid_mask(b.capacity, b.n)], dim=1)
     data, n, ovf = _compact(buf, keep, out_cap)
     return JBindings(cols, data, n, a.overflow | b.overflow | ovf)
 
@@ -441,20 +523,18 @@ def device_scan_tt(rows: torch.Tensor, n: torch.Tensor, s_bound, p_bound,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Select + project over the (N, 3) triples table — the unbound-
     predicate scan (and the ``layout="tt"`` baseline scan).  Bound s/o
-    constants are device scalars like :func:`device_scan`'s; the bound
-    predicate of a TT-layout scan is a Python int (predicates are plan
-    identity and never template-rebindable).  ``eqs`` carries the
-    repeated-variable equality selections of patterns like ``?x ?p ?x``."""
-    cap = rows.shape[0]
-    keep = _valid_mask(cap, n)
-    if s_bound is not None:
-        keep &= rows[:, 0] == s_bound
+    constants are (B,) device columns like :func:`device_scan`'s (and
+    give batch 1 when neither is bound); the bound predicate of a
+    TT-layout scan is a Python int (predicates are plan identity and
+    never template-rebindable).  ``eqs`` carries the repeated-variable
+    equality selections of patterns like ``?x ?p ?x``."""
+    keep = _selected(rows, n, [(c, v) for c, v in ((0, s_bound),
+                                                    (2, o_bound))
+                               if v is not None])
     if p_bound is not None:
-        keep &= rows[:, 1] == p_bound
-    if o_bound is not None:
-        keep &= rows[:, 2] == o_bound
+        keep = keep & (rows[:, 1] == p_bound)
     for i, j in eqs:
-        keep &= rows[:, i] == rows[:, j]
+        keep = keep & (rows[:, i] == rows[:, j])
     projected = rows[:, list(take)] if take else rows[:, :0]
     return _compact(projected, keep, out_cap)
 
@@ -462,30 +542,31 @@ def device_scan_tt(rows: torch.Tensor, n: torch.Tensor, s_bound, p_bound,
 # ---------------------------------------------------------------------------
 # Solution modifiers on device (the spine of repro_torch.core.modifiers)
 #
-# All five operators keep the JBindings invariant — valid rows occupy
-# [0, n) contiguously with PAD rows behind — and none can overflow (a
-# modifier never grows the relation), so the per-step overflow/retry
-# protocol of the scan/join pipeline is untouched.
+# All five operators keep the JBindings invariant — in each binding,
+# valid rows occupy [0, n) contiguously with PAD rows behind — and none
+# can overflow (a modifier never grows the relation), so the per-step
+# overflow/retry protocol of the scan/join pipeline is untouched.
 # ---------------------------------------------------------------------------
 
 def _filter_operand(b: JBindings, values: torch.Tensor, term, numeric: bool,
                     fconsts: torch.Tensor, ctr: List[int]):
-    """(ids, numeric (hi, lo) key pair) for one comparison operand.
-    Constant ids are device scalars read from ``fconsts`` (slot order
-    fixed by :func:`repro_torch.core.modifiers.filter_const_slots`), so
-    re-binding a template constant changes only an input; float literals
-    are part of the template text.  A variable the relation does not
-    bind is UNBOUND everywhere."""
-    cap = b.capacity
+    """(ids, numeric (hi, lo) key pair) for one comparison operand, each
+    ``(B, cap)``.  Constant ids are read from column ``ctr`` of the
+    batch's ``(B, n_fc)`` ``fconsts`` (slot order fixed by
+    :func:`repro_torch.core.modifiers.filter_const_slots`), so re-binding
+    a template constant changes only an input; float literals are part
+    of the template text.  A variable the relation does not bind is
+    UNBOUND everywhere."""
+    batch, cap = b.batch, b.capacity
     dev = b.data.device
     nv = values.shape[0]
     dt = values.dtype
     nan = torch.tensor(float("nan"), dtype=dt, device=dev)
     if isinstance(term, str):            # variable
         if term in b.cols:
-            ids = b.data[:, b.cols.index(term)]
+            ids = b.data[:, :, b.cols.index(term)]
         else:
-            ids = torch.full((cap,), UNBOUND, dtype=_I32, device=dev)
+            ids = torch.full((batch, cap), UNBOUND, dtype=_I32, device=dev)
         if not numeric:
             return ids, None
         if nv:
@@ -494,16 +575,17 @@ def _filter_operand(b: JBindings, values: torch.Tensor, term, numeric: bool,
             hi = torch.where(ok, values[safe, 0], nan)
             lo = torch.where(ok, values[safe, 1], nan)
         else:
-            hi = torch.full((cap,), float("nan"), dtype=dt, device=dev)
+            hi = torch.full((batch, cap), float("nan"), dtype=dt, device=dev)
             lo = hi
         return ids, (hi, lo)
     if isinstance(term, float):          # numeric literal
         fhi, flo = _split_scalar(term)
-        return None, (torch.full((cap,), float(fhi), dtype=dt, device=dev),
-                      torch.full((cap,), float(flo), dtype=dt, device=dev))
-    tid = fconsts[ctr[0]]                # constant id -> runtime slot
+        return None, (
+            torch.full((batch, cap), float(fhi), dtype=dt, device=dev),
+            torch.full((batch, cap), float(flo), dtype=dt, device=dev))
+    tid = fconsts[:, ctr[0]]             # constant ids -> runtime slot
     ctr[0] += 1
-    ids = tid.expand(cap)
+    ids = tid[:, None].expand(batch, cap)
     if not numeric:
         return ids, None
     if nv:
@@ -512,17 +594,17 @@ def _filter_operand(b: JBindings, values: torch.Tensor, term, numeric: bool,
         hi = torch.where(ok, values[safe, 0], nan)
         lo = torch.where(ok, values[safe, 1], nan)
     else:
-        hi = nan
+        hi = nan.expand(batch)
         lo = hi
-    return ids, (hi.expand(cap), lo.expand(cap))
+    return ids, (hi[:, None].expand(batch, cap), lo[:, None].expand(batch, cap))
 
 
 def _filter_mask(expr: FilterExpr, b: JBindings, values: torch.Tensor,
                  fconsts: torch.Tensor, ctr: List[int]) -> torch.Tensor:
-    """Boolean keep-mask over the relation's rows: identity comparison on
-    ids, numeric comparison through the dictionary's double-single key
-    pairs, UNBOUND/type-error rows dropped.  NaN key pairs make every
-    comparison false, matching host NaN semantics."""
+    """Boolean ``(B, cap)`` keep-mask over the relation's rows: identity
+    comparison on ids, numeric comparison through the dictionary's
+    double-single key pairs, UNBOUND/type-error rows dropped.  NaN key
+    pairs make every comparison false, matching host NaN semantics."""
     if isinstance(expr, BoolOp):
         masks = [_filter_mask(e, b, values, fconsts, ctr) for e in expr.args]
         out = masks[0]
@@ -533,9 +615,8 @@ def _filter_mask(expr: FilterExpr, b: JBindings, values: torch.Tensor,
         return ~_filter_mask(expr.arg, b, values, fconsts, ctr)
     if isinstance(expr, Bound):
         if expr.var not in b.cols:
-            return torch.zeros((b.capacity,), dtype=torch.bool,
-                               device=b.data.device)
-        return b.data[:, b.cols.index(expr.var)] != UNBOUND
+            return _false(b.data.device, b.batch, b.capacity)
+        return b.data[:, :, b.cols.index(expr.var)] != UNBOUND
     assert isinstance(expr, Cmp)
     numeric = expr.op in ("<", "<=", ">", ">=") or \
         isinstance(expr.lhs, float) or isinstance(expr.rhs, float)
@@ -574,14 +655,15 @@ def device_filter(b: JBindings, expr: FilterExpr, values: torch.Tensor,
 def device_project(b: JBindings, out_vars: Sequence[str]) -> JBindings:
     """Projection: gather the selected columns (UNBOUND-fill variables
     the pipeline does not produce), re-PAD invalid rows."""
-    cap = b.capacity
+    batch, cap = b.batch, b.capacity
     if not out_vars:
-        return JBindings((), b.data[:, :0], b.n, b.overflow)
-    cols = [b.data[:, b.cols.index(v)] if v in b.cols
-            else torch.full((cap,), UNBOUND, dtype=_I32, device=b.data.device)
+        return JBindings((), b.data[:, :, :0], b.n, b.overflow)
+    cols = [b.data[:, :, b.cols.index(v)] if v in b.cols
+            else torch.full((batch, cap), UNBOUND, dtype=_I32,
+                            device=b.data.device)
             for v in out_vars]
-    data = torch.stack(cols, dim=1)
-    data = torch.where(_valid_mask(cap, b.n)[:, None], data, PAD)
+    data = torch.stack(cols, dim=2)
+    data = torch.where(_valid_mask(cap, b.n)[..., None], data, PAD)
     return JBindings(tuple(out_vars), data, b.n, b.overflow)
 
 
@@ -589,16 +671,18 @@ def device_resize(b: JBindings, out_cap: int
                   ) -> Tuple[JBindings, torch.Tensor]:
     """Re-buffer the relation to ``out_cap`` rows — a pure truncation or
     PAD extension (valid rows are contiguous at the front).  Returns the
-    relation and an overflow flag for the retry protocol: DISTINCT/ORDER
-    BY sort this buffer, so right-sizing it keeps modifier queries from
-    sorting a join-sized buffer of mostly-PAD rows."""
-    cap, k = b.data.shape
+    relation and an overflow flag per binding for the retry protocol:
+    DISTINCT/ORDER BY sort this buffer, so right-sizing it keeps
+    modifier queries from sorting a join-sized buffer of mostly-PAD
+    rows."""
+    batch, cap, k = b.data.shape
     if out_cap < cap:
-        data = b.data[:out_cap]
+        data = b.data[:, :out_cap]
     elif out_cap > cap:
         data = torch.cat(
-            [b.data, torch.full((out_cap - cap, k), PAD, dtype=b.data.dtype,
-                                device=b.data.device)], dim=0)
+            [b.data, torch.full((batch, out_cap - cap, k), PAD,
+                                dtype=b.data.dtype, device=b.data.device)],
+            dim=1)
     else:
         data = b.data
     ovf = b.n > out_cap
@@ -607,11 +691,13 @@ def device_resize(b: JBindings, out_cap: int
 
 
 def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``np.lexsort`` order (the LAST key is the primary one) as chained
-    stable sorts from the least significant key up."""
-    order = torch.argsort(keys[0], stable=True)
+    """``np.lexsort`` order along the last axis (the LAST key is the
+    primary one) as chained stable sorts from the least significant key
+    up; each binding's row sorts on its own."""
+    order = torch.argsort(keys[0], dim=-1, stable=True)
     for key in keys[1:]:
-        order = order[torch.argsort(key[order], stable=True)]
+        order = torch.gather(order, -1, torch.argsort(
+            torch.gather(key, -1, order), dim=-1, stable=True))
     return order
 
 
@@ -620,20 +706,20 @@ def device_distinct(b: JBindings) -> JBindings:
     stable compact of the FIRST occurrence of each distinct row in the
     original order — the host first-occurrence-stable dedup, so an order
     established before it survives."""
-    cap, k = b.data.shape
+    batch, cap, k = b.data.shape
     if k == 0:   # zero-column relation: dedup of n empty mappings is one
         return JBindings(b.cols, b.data, torch.clamp(b.n, max=1), b.overflow)
+    dev = b.data.device
     valid = _valid_mask(cap, b.n)
-    keys = [b.data[:, j] for j in range(k - 1, -1, -1)]
+    keys = [b.data[:, :, j] for j in range(k - 1, -1, -1)]
     keys.append((~valid).to(_I32))                 # valid rows first
     order = _lexsort(keys)
-    sdata = b.data[order]
-    svalid = valid[order]
+    sdata = b.data[_rows(batch, dev), order]
+    svalid = torch.gather(valid, 1, order)
     same_prev = torch.cat([
-        torch.zeros((1,), dtype=torch.bool, device=b.data.device),
-        torch.all(sdata[1:] == sdata[:-1], dim=1)])
-    keep = torch.zeros(cap, dtype=torch.bool, device=b.data.device)
-    keep[order] = svalid & ~same_prev
+        _false(dev, batch, 1),
+        torch.all(sdata[:, 1:] == sdata[:, :-1], dim=2)], dim=1)
+    keep = _false(dev, batch, cap).scatter_(1, order, svalid & ~same_prev)
     data, n, _ = _compact(b.data, keep, cap)
     return JBindings(b.cols, data, n, b.overflow)
 
@@ -645,7 +731,7 @@ def device_order(b: JBindings, keys: Sequence[Tuple[str, bool]],
     terms by id — the host ``order_rows`` semantics); UNBOUND sorts last
     ascending and first descending (SQL NULLS LAST under negation); PAD
     rows keep sorting behind every valid row."""
-    cap = b.capacity
+    batch, cap = b.batch, b.capacity
     dev = b.data.device
     valid = _valid_mask(cap, b.n)
     nv = values.shape[0]
@@ -654,16 +740,16 @@ def device_order(b: JBindings, keys: Sequence[Tuple[str, bool]],
     for var, asc in reversed(tuple(keys)):
         if var not in b.cols:
             continue                      # unbound key: constant, no-op
-        ids = b.data[:, b.cols.index(var)]
+        ids = b.data[:, :, b.cols.index(var)]
+        zero = torch.zeros((batch, cap), dtype=dt, device=dev)
         if nv:
             safe = torch.clamp(ids, 0, nv - 1)
             ok = ids >= 0
             hi = torch.where(ok, values[safe, 2], ids.to(dt))
-            lo = torch.where(ok, values[safe, 3],
-                             torch.zeros((cap,), dtype=dt, device=dev))
+            lo = torch.where(ok, values[safe, 3], zero)
         else:
             hi = ids.to(dt)
-            lo = torch.zeros((cap,), dtype=dt, device=dev)
+            lo = zero
         hi = torch.where(ids == UNBOUND,
                          torch.tensor(float("inf"), dtype=dt, device=dev), hi)
         if not asc:
@@ -674,25 +760,28 @@ def device_order(b: JBindings, keys: Sequence[Tuple[str, bool]],
         return b
     ks.append((~valid).to(_I32))                   # valid rows first
     order = _lexsort(ks)
-    return JBindings(b.cols, b.data[order], b.n, b.overflow)
+    return JBindings(b.cols, b.data[_rows(batch, dev), order], b.n,
+                     b.overflow)
 
 
 def device_slice(b: JBindings, offset: int, limit: Optional[int]) -> JBindings:
-    """OFFSET/LIMIT: static row-window over the compacted relation.  A
-    LIMIT below the buffer capacity also *trims the buffer*, so only the
-    final ≤ limit rows ever transfer back to the host."""
-    cap, k = b.data.shape
+    """OFFSET/LIMIT: static row-window over each binding's compacted
+    relation.  A LIMIT below the buffer capacity also *trims the
+    buffer*, so only the final ≤ limit rows ever transfer back to the
+    host."""
+    batch, cap, k = b.data.shape
     data, n = b.data, b.n
     if offset:
         shift = min(int(offset), cap)
         data = torch.cat(
-            [data[shift:], torch.full((shift, k), PAD, dtype=data.dtype,
-                                      device=data.device)], dim=0)
+            [data[:, shift:], torch.full((batch, shift, k), PAD,
+                                         dtype=data.dtype,
+                                         device=data.device)], dim=1)
         n = torch.clamp(n - offset, min=0)
     if limit is not None:
         n = torch.clamp(n, max=limit)
         if limit < cap:
-            data = data[:max(int(limit), 0)]
+            data = data[:, :max(int(limit), 0)]
     return JBindings(b.cols, data, n, b.overflow)
 
 
@@ -963,29 +1052,31 @@ class PlanExecutor:
     # -- the program -----------------------------------------------------------
     def _scan_step(self, i: int, step: ScanStep, first: bool, inp: _Inputs,
                    bounds: torch.Tensor, caps: Tuple[int, ...]) -> JBindings:
-        """One scan, picking the windowed form when the subject is bound
-        (tables are subject-sorted); TT steps scan the shared padded
-        triples table.  ``first`` marks the first step of a BGP segment,
-        which compacts to its own capacity slot."""
+        """One scan for every binding of the batch (``bounds`` is
+        ``(B, n_steps, 2)``), picking the windowed form when the subject
+        is bound (tables are subject-sorted); TT steps scan the shared
+        padded triples table.  ``first`` marks the first step of a BGP
+        segment, which compacts to its own capacity slot."""
+        batch = bounds.shape[0]
         if step.uses_tt:
             s_b, p_b, o_b, eqs, take, cols = _tt_meta(step.tp)
             out_cap = caps[i] if first else inp.tt_rows.shape[0]
-            sb = bounds[i, 0] if s_b is not None else None
-            ob = bounds[i, 1] if o_b is not None else None
+            sb = bounds[:, i, 0] if s_b is not None else None
+            ob = bounds[:, i, 1] if o_b is not None else None
             data, n, ovf = device_scan_tt(inp.tt_rows, inp.tt_n, sb, p_b, ob,
                                           eqs, take, out_cap)
-            return JBindings(cols, data, n, ovf)
+            return _broadcast(JBindings(cols, data, n, ovf), batch)
         s_bound, o_bound, same, take, cols = _step_meta(step)
         out_cap = caps[i] if first else inp.rows[i].shape[0]
-        sb = bounds[i, 0] if s_bound is not None else None
-        ob = bounds[i, 1] if o_bound is not None else None
+        sb = bounds[:, i, 0] if s_bound is not None else None
+        ob = bounds[:, i, 1] if o_bound is not None else None
         if s_bound is not None and o_bound is None:
             data, n, ovf = device_scan_windowed(inp.rows[i], inp.ns[i], sb,
                                                 take, out_cap, inp.s_cols[i])
         else:
             data, n, ovf = device_scan(inp.rows[i], inp.ns[i], sb, ob,
                                        same, take, out_cap)
-        return JBindings(cols, data, n, ovf)
+        return _broadcast(JBindings(cols, data, n, ovf), batch)
 
     def _compose_bgp(self, seg: BGPSeg, caps: Tuple[int, ...], inp: _Inputs,
                      bounds: torch.Tensor, ovfs: List[torch.Tensor],
@@ -994,14 +1085,15 @@ class PlanExecutor:
         recorded PER STEP into ``ovfs`` (at the step's flat index) so the
         host retry doubles only the capacities that actually overflowed.
         ``shared`` maps flat step index -> precomputed (relation,
-        presorted join key) for bounds-independent scans (empty for the
-        single-request program)."""
-        no = _false(self.device)
+        presorted join key) for bounds-independent scans (empty for
+        :meth:`run`)."""
+        batch = bounds.shape[0]
+        no = _false(self.device, batch)
         if not seg.plan.steps:
             # empty BGP: the unit relation (one empty solution mapping)
-            return JBindings((), torch.zeros((8, 0), dtype=_I32,
+            return JBindings((), torch.zeros((batch, 8, 0), dtype=_I32,
                                              device=self.device),
-                             _scalar(1, self.device), no)
+                             _scalar(1, self.device, batch), no)
         acc: Optional[JBindings] = None
         for k, step in enumerate(seg.plan.steps):
             i = seg.start + k
@@ -1032,13 +1124,14 @@ class PlanExecutor:
         combine writes its own overflow flag at its capacity index;
         child flags are recorded at the children, so every returned
         relation carries a clean (False) sticky flag."""
-        no = _false(self.device)
+        batch = bounds.shape[0]
+        no = _false(self.device, batch)
         if isinstance(seg, EmptySeg):
             k = len(seg.vars)
             return JBindings(tuple(seg.vars),
-                             torch.full((8, k), PAD, dtype=_I32,
+                             torch.full((batch, 8, k), PAD, dtype=_I32,
                                         device=self.device),
-                             _scalar(0, self.device), no)
+                             _scalar(0, self.device, batch), no)
         if isinstance(seg, BGPSeg):
             return self._compose_bgp(seg, caps, inp, bounds, ovfs, shared)
         if isinstance(seg, FilterSeg):
@@ -1064,17 +1157,20 @@ class PlanExecutor:
                  bounds: torch.Tensor, fconsts: torch.Tensor,
                  shared: _Shared
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One binding, end to end on the device: (data, n, overflow
-        flags per capacity slot)."""
+        """B bindings, end to end on the device, from their ``(B, n_steps,
+        2)`` bounds and ``(B, n_fc)`` filter constants: ``(data (B, cap,
+        k), n (B,), overflow flags (B, capacity slots))``."""
+        batch = bounds.shape[0]
         ctr = [0]
-        ovfs: List[torch.Tensor] = [_false(self.device)] * self._n_pipeline
+        ovfs: List[torch.Tensor] = [_false(self.device, batch)] * \
+            self._n_pipeline
         b = self._eval_seg(self.core.root, caps, inp, bounds, fconsts, ctr,
                            ovfs, shared)
         b, mod_ovf = self._apply_spine(b, inp.values, fconsts, caps, ctr)
         if mod_ovf is not None:
             ovfs = ovfs + [mod_ovf]
-        stacked = torch.stack(ovfs) if ovfs else \
-            torch.zeros((0,), dtype=torch.bool, device=self.device)
+        stacked = torch.stack(ovfs, dim=1) if ovfs else \
+            _false(self.device, batch, 0)
         return b.data, b.n, stacked
 
     @functools.cached_property
@@ -1105,12 +1201,14 @@ class PlanExecutor:
         values = torch.from_numpy(self._value_keys).to(dev)
         return _Inputs(rows, s_cols, ns, tt_rows, tt_n, values)
 
-    def _hoist(self, inp: _Inputs) -> _Shared:
+    def _hoist(self, inp: _Inputs, batch: int) -> _Shared:
         """The shared phase of a batched launch: bounds-independent scans
         (constants only enter scan selection values, so a step whose
         pattern binds no constant gives every batch element the same
         relation) and the build-side presort of the joins that consume
-        them, computed once per launch."""
+        them, computed once per launch.  Each relation is a view of
+        ``batch`` rows over one; each presort is one ``(cap,)`` key, so
+        the join probes the whole batch against one build."""
         shared: _Shared = {}
 
         def hoist(seg: CoreSeg) -> None:
@@ -1148,8 +1246,8 @@ class PlanExecutor:
                     key = next((c for c in acc_cols if c in cols), None)
                     pre = None
                     if key is not None:
-                        pre = _presort(build_key(cur, cols.index(key)))
-                    shared[i] = (cur, pre)
+                        pre = _presort(build_key(cur, cols.index(key))[0])
+                    shared[i] = (_broadcast(cur, batch), pre)
                 for c in cols:
                     if c not in acc_cols:
                         acc_cols.append(c)
@@ -1165,50 +1263,28 @@ class PlanExecutor:
             fconsts: Optional[np.ndarray] = None,
             trace=None) -> Tuple[np.ndarray, Tuple[str, ...]]:
         """Execute one binding; returns the result rows (host numpy) and
-        their columns.  The host syncs once per launch, for the row
-        count and the overflow flags, then copies the rows back.  A
-        sampled request's ``trace`` gets one ``device.launch`` span per
-        attempt, ended after that sync (the copy of the head waits for
-        the stream), so a traced launch adds no synchronization."""
-        inp = self._device_inputs
+        their columns: the program at a batch of one, without the
+        hoisted phase (:meth:`run_batch`)."""
         b = self._default_bounds if bounds is None else \
             np.asarray(bounds, dtype=np.int32).reshape(self._default_bounds.shape)
         fc = self.fconsts_from_mapping(None) if fconsts is None else \
             np.asarray(fconsts, dtype=np.int32).reshape(len(self.filter_slots))
-        bj, fj = self._to_device(b), self._to_device(fc)
-        caps = tuple(self.caps)
-        for attempt in range(max_retries):
-            sid = trace.start("device.launch", backend="torch",
-                              attempt=attempt, batch=1,
-                              cap_slots=sum(caps)) \
-                if trace is not None else None
-            data, n, ovf = self._program(caps, inp, bj, fj, {})
-            head = torch.cat([n.reshape(1), ovf.to(_I32)]).cpu().numpy()
-            if trace is not None:
-                trace.end(sid, overflow=bool(head[1:].any()))
-            if not head[1:].any():
-                # keep grown caps: a hot template must not pay the
-                # overflow->retry double-launch on every request
-                self.caps = list(caps)
-                return data[:int(head[0])].cpu().numpy(), self._final_cols()
-            caps = double_caps(caps, head[1:].astype(bool), self._n_pipeline)
-        raise RuntimeError("join capacity overflow after retries")
+        return self._launch(b[None], fc[None], False, max_retries, trace)[0]
 
     def run_batch(self, bounds_batch: Sequence[np.ndarray],
                   fconsts_batch: Optional[Sequence[np.ndarray]] = None,
                   max_retries: int = 16, trace=None
                   ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
-        """Execute B constant-bindings of this template in one launch:
-        the bounds-independent scans and their build-side presorts run
-        once (:meth:`_hoist`), then each binding's constant-dependent
-        work runs in turn on the same stream, and the host syncs once at
-        the end.  Overflow on *any* batch element retries the whole
-        batch with doubled caps — the batch shares one cap vector.
-        ``trace`` (the batch's lead request) gets one ``device.launch``
-        span per attempt, as in :meth:`run`."""
+        """Execute B constant-bindings of this template as one launch
+        sequence: the ``(B, n_steps, 2)`` bounds stack and the ``(B,
+        n_fc)`` filter-constant stack are the only batched inputs (tables
+        are shared), the bounds-independent scans and their build-side
+        presorts run once (:meth:`_hoist`), and every operator runs once
+        for the whole batch — the reference's vmapped program.  Overflow
+        on *any* batch element retries the whole batch with doubled caps:
+        the batch shares one cap vector."""
         if not bounds_batch:
             return []
-        inp = self._device_inputs
         shape = self._default_bounds.shape
         bb = np.stack([np.asarray(b, dtype=np.int32).reshape(shape)
                        for b in bounds_batch])
@@ -1218,28 +1294,45 @@ class PlanExecutor:
         else:
             fb = np.stack([np.asarray(f, dtype=np.int32).reshape(n_fc)
                            for f in fconsts_batch])
+        return self._launch(bb, fb, True, max_retries, trace)
+
+    def _launch(self, bb: np.ndarray, fb: np.ndarray, hoist: bool,
+                max_retries: int, trace
+                ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
+        """The program over the bindings' ``(B, n_steps, 2)`` bounds and
+        ``(B, n_fc)`` filter constants, retried with doubled caps while
+        any binding overflows (``ovf.any(axis=0)``: the reference's
+        rule), then each binding's rows copied back.  The host syncs once
+        per attempt, for the ``(B, 1 + slots)`` head of row counts and
+        overflow flags.  A sampled request's ``trace`` (a batch's lead
+        request) gets one ``device.launch`` span per attempt, ended after
+        that sync (the copy of the head waits for the stream), so a
+        traced launch adds no synchronization."""
+        inp = self._device_inputs
         bj, fj = self._to_device(bb), self._to_device(fb)
+        batch = len(bb)
         caps = tuple(self.caps)
         for attempt in range(max_retries):
             sid = trace.start("device.launch", backend="torch",
-                              attempt=attempt, batch=len(bb),
+                              attempt=attempt, batch=batch,
                               cap_slots=sum(caps)) \
                 if trace is not None else None
-            shared = self._hoist(inp)
-            outs = [self._program(caps, inp, bj[i], fj[i], shared)
-                    for i in range(len(bb))]
-            head = torch.stack([torch.cat([n.reshape(1), ovf.to(_I32)])
-                                for _, n, ovf in outs]).cpu().numpy()
+            shared = self._hoist(inp, batch) if hoist else {}
+            data, n, ovf = self._program(caps, inp, bj, fj, shared)
+            head = torch.cat([n[:, None], ovf.to(_I32)], dim=1).cpu().numpy()
             ovf_any = head[:, 1:].any(axis=0)
             if trace is not None:
                 trace.end(sid, overflow=bool(ovf_any.any()))
             if not ovf_any.any():
+                # keep grown caps: a hot template must not pay the
+                # overflow->retry double-launch on every request
                 self.caps = list(caps)
                 cols = self._final_cols()
-                return [(data[:int(head[i, 0])].cpu().numpy(), cols)
-                        for i, (data, _, _) in enumerate(outs)]
+                return [(data[i, :int(head[i, 0])].cpu().numpy(), cols)
+                        for i in range(batch)]
             caps = double_caps(caps, ovf_any, self._n_pipeline)
-        raise RuntimeError("join capacity overflow after retries (batched)")
+        raise RuntimeError("join capacity overflow after retries" +
+                           (" (batched)" if hoist else ""))
 
     def _final_cols(self) -> Tuple[str, ...]:
         return self._out_vars

@@ -111,6 +111,11 @@ class PreparedQuery:
     """A template compiled for a backend; run any instantiation of it."""
 
     backend: str = "torch"
+    #: True when run_batch executes the whole batch as one launch sequence
+    #: (padding to a static shape is then worthwhile and the batch-shape
+    #: tuner may judge it); the base loop runs padding slots as real
+    #: queries, so callers must not pad for it
+    vectorized_batch: bool = False
     #: True when a device backend could not compile the template and
     #: prepared it on the eager host engine — the Engine counts these per
     #: request (``device_fallbacks``), so host execution is observable
@@ -210,17 +215,15 @@ class _EagerPrepared(PreparedQuery):
 
 class _VectorizedPrepared(PreparedQuery):
     """The device path: the executor's ``bounds`` input carries the bound
-    constants.  ``run`` feeds one bounds vector; ``run_batch`` feeds B of
-    them to one ``executor.run_batch`` call.  Missing-constant bindings
-    (S2RDF's statistics-only empty answer) are answered on the host and
-    never occupy a batch slot.
+    constants.  ``run`` feeds one bounds vector; ``run_batch`` stacks B
+    of them into a leading batch axis and runs the whole micro-batch as
+    one launch sequence (:meth:`PlanExecutor.run_batch`), so the Engine
+    pads a chunk to its bucket shape and the batch-shape tuner observes
+    it.  A missing-constant binding (S2RDF's statistics-only empty
+    answer) is answered on the host and takes no slot: the batch is
+    padded back to its shape by repeating a live binding."""
 
-    The batch is not one launch: the executors hoist a batch's shared
-    scans and run each binding's own work in turn, so a batch costs about
-    B queries.  The Engine therefore pads nothing and the batch-shape
-    tuner observes none of these calls — the reference's rule for a
-    sequential ``run_batch``.  The tuner's menu starts to move once a
-    batch becomes one launch."""
+    vectorized_batch = True
 
     def __init__(self, template, ctx, executor):
         super().__init__(template, ctx)
@@ -269,6 +272,12 @@ class _VectorizedPrepared(PreparedQuery):
                     rebind_plan(self.plan, b.mapping)))
                 fconsts.append(self.executor.fconsts_from_mapping(b.mapping))
         if live:
+            # pad back to the caller's (bucket-shaped) batch size: a
+            # missing binding takes no slot of its own, and a batch that
+            # is one launch sequence keeps the shape the engine chose
+            while self.vectorized_batch and len(bounds) < len(bindings):
+                bounds.append(bounds[-1])
+                fconsts.append(fconsts[-1])
             outs = self.executor.run_batch(bounds, fconsts, trace=trace)
             sid = trace.start("demux", batch=len(bindings),
                               live=len(live)) if trace is not None else None
@@ -324,9 +333,11 @@ class _DistributedPrepared(_VectorizedPrepared):
     """The distributed executor over a process group; table shards and
     the per-rank program are template-level state, constants are runtime
     inputs.  Every rank of the group must run the same bindings in the
-    same order."""
+    same order.  Its ``run_batch`` runs the bindings in turn (after one
+    hoisted phase), so the Engine neither pads nor observes it."""
 
     backend = "distributed"
+    vectorized_batch = False
 
 
 class DistributedBackend(TorchBackend):

@@ -99,7 +99,8 @@ class ServerMetrics:
     batches: int = 0          # batched launches executed
     batched_requests: int = 0 # requests served through a batched launch
     # slots wasted padding up to a static shape (only a batch that is one
-    # launch is padded; the port's executors run a batch in turn, so 0)
+    # launch sequence is padded: the torch backend's, not the eager or
+    # distributed seats')
     padding_slots: int = 0
     # adaptive runtime: requests per backend actually executed on (on a
     # static engine this is all one key; under "auto" it shows the mix)
@@ -563,21 +564,25 @@ class Engine:
                    bindings: List[Optional[object]],
                    traces: Optional[List[Optional[TraceContext]]] = None
                    ) -> List[Result]:
-        """Same-template bindings through ``run_batch``, chunked at the
-        largest active static shape.  Every ``run_batch`` of the port runs
-        its bindings in turn, so a chunk is not padded up to a bucket
-        shape and the tuner observes nothing: padding slots would run as
-        real queries.  Padding and ``tuner.observe`` come back with a
-        backend whose batch is one launch.
+        """Execute same-template bindings through ``run_batch``, chunked
+        at the largest active static shape and padded up to the bucket
+        shape (the pad repeats a real binding; padded results are
+        dropped).  Backends whose ``run_batch`` runs its bindings in turn
+        (the eager and distributed seats) are not padded — padding only
+        buys something when the batch is one launch sequence — and the
+        tuner observes only the padded ones.
 
         ``traces`` (parallel to ``bindings``) carries the sampled
-        requests' trace contexts.  A chunk shares ONE ``run_batch`` call,
-        so the ``device.launch`` spans land on the chunk's first traced
+        requests' trace contexts.  A chunk shares ONE launch sequence, so
+        the ``device.launch`` spans land on the chunk's first traced
         context (the *lead*); every other traced request of the chunk
-        gets its own ``execute`` span flagged ``shared_launch=True``."""
+        gets its own ``execute`` span flagged ``shared_launch=True``.
+        The router and the tuner see ``_agreed_ms`` of the chunk's wall
+        time, so every rank of a group keeps one seat and one menu."""
         out: List[Result] = []
         clock = self.config.clock
         max_shape = self.max_active_batch()
+        pad = prepared.vectorized_batch
         if traces is None:
             traces = [None] * len(bindings)
         for start in range(0, len(bindings), max_shape):
@@ -586,27 +591,44 @@ class Engine:
                       enumerate(traces[start: start + max_shape])
                       if t is not None]
             lead = traced[0][1] if traced else None
+            shape = self.bucket_shape(len(chunk)) if pad else len(chunk)
+            padded = chunk + [chunk[-1]] * (shape - len(chunk))
             open_sids = [
                 (t, t.start("execute", backend=decision.backend,
-                            batch=len(chunk), shape=len(chunk),
+                            batch=len(chunk), shape=shape,
                             shared_launch=t is not lead))
                 for _, t in traced]
+            if lead is not None and shape != len(chunk):
+                lead.event("batch.pad", shape=shape, live=len(chunk),
+                           padding=shape - len(chunk))
             t0 = clock()
-            res = prepared.run_batch(chunk, trace=lead) \
-                if lead is not None else prepared.run_batch(chunk)
+            res = prepared.run_batch(padded, trace=lead) \
+                if lead is not None else prepared.run_batch(padded)
             dt_ms = (clock() - t0) * 1e3
             self.metrics.batches += 1
             self.metrics.batched_requests += len(chunk)
+            self.metrics.padding_slots += shape - len(chunk)
             # every request in the batch observed the batch's wall time
             self.metrics.record_latency(dt_ms, count=len(chunk))
             self.metrics.record_route(decision.backend, count=len(chunk))
-            # the router compares per-request service time across backends
-            self.router.observe(sig, decision.backend,
-                                self._agreed_ms(dt_ms) / len(chunk),
+            # the router compares per-request service time across
+            # backends; the tuner compares per-slot time across shapes
+            dt_ms = self._agreed_ms(dt_ms)
+            self.router.observe(sig, decision.backend, dt_ms / len(chunk),
                                 reason=decision.reason, weight=len(chunk))
+            if pad:
+                before = self.tuner.active_shapes() \
+                    if lead is not None else None
+                self.tuner.observe(shape, len(chunk), dt_ms)
+                if lead is not None:
+                    after = self.tuner.active_shapes()
+                    if after != before:
+                        lead.event("tuner.retire", retired=[
+                            s for s in before if s not in after])
+            kept = res[: len(chunk)]
             for (j, t), (_, sid) in zip(traced, open_sids):
-                t.end(sid, rows=len(res[j]))
-            out.extend(res)
+                t.end(sid, rows=len(kept[j]))
+            out.extend(kept)
         return out
 
     def query_batch(self, qtexts: List[str],

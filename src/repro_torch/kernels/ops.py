@@ -86,15 +86,25 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _join_probe_fn():
-    lib = build.load("join_probe")
-    fn = lib.join_probe_launch
+_PROBE_ARGTYPES = {
+    "join_probe_launch": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "join_probe_batched_launch": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]}
+
+
+def _join_probe_fn(name: str = "join_probe_launch"):
+    """An entry point of ``join_probe.cu``: ``join_probe_launch`` (one
+    build) or ``join_probe_batched_launch`` (a build per row)."""
+    fn = getattr(build.load("join_probe"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = _PROBE_ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -104,15 +114,17 @@ def _sm_count(index: Optional[int]) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _probe_plan(n_a: int, n_b: int, sms: int) -> Tuple[int, int, int, int]:
+def _probe_plan(n_a: int, n_b: int, sms: int, batch: int = 1
+                ) -> Tuple[int, int, int, int]:
     """The join-probe kernel's launch plan: ``(stride, n_splitters,
     blocks, smem_bytes)``.  ``stride`` is the smallest power of two that
     keeps the ``ceil(n_b / stride)`` splitters within ``SMEM_KEYS``; they
     fill a search tree of the next power of two of slots, 4 bytes each.
-    ``blocks`` is the persistent grid: a block per ``PROBE_THREADS``
-    probe keys, at most as many as ``sms`` SMs hold at once with that
-    much shared memory (the launch cuts it further if registers hold
-    fewer)."""
+    ``blocks`` is the persistent grid of one of ``batch`` rows of ``n_a``
+    probe keys (each row its own build): a block per ``PROBE_THREADS``
+    keys, all rows' blocks together at most as many as ``sms`` SMs hold
+    at once with that much shared memory, and at least one a row (the
+    launch cuts it further if registers hold fewer)."""
     stride = 1
     while -(-n_b // stride) > SMEM_KEYS:
         stride *= 2
@@ -120,7 +132,8 @@ def _probe_plan(n_a: int, n_b: int, sms: int) -> Tuple[int, int, int, int]:
     smem_bytes = 4 << max(n_splitters - 1, 0).bit_length() if n_b else 0
     per_sm = min(SM_THREADS // PROBE_THREADS,
                  SM_SMEM_BYTES // (smem_bytes + BLOCK_SMEM_RESERVED))
-    return stride, n_splitters, min(-(-n_a // PROBE_THREADS), sms * per_sm), \
+    room = max(sms * per_sm // batch, 1)
+    return stride, n_splitters, min(-(-n_a // PROBE_THREADS), room), \
         smem_bytes
 
 
@@ -417,46 +430,84 @@ def _semijoin_launch(probe: torch.Tensor, build_sorted: torch.Tensor,
     return mask, counts
 
 
+def _check_probe_shapes(probe: torch.Tensor, build_sorted: torch.Tensor
+                        ) -> None:
+    """The forms :func:`join_probe` takes: a probe ``(n_a,)`` or ``(B,
+    n_a)`` against a build ``(n_b,)`` (one for every row), or a probe
+    ``(B, n_a)`` against a build ``(B, n_b)`` (one a row)."""
+    ok = probe.dim() in (1, 2) and (
+        build_sorted.dim() == 1 or (probe.dim() == build_sorted.dim() == 2
+                                    and probe.shape[0] ==
+                                    build_sorted.shape[0]))
+    if not ok:
+        raise ValueError(f"join_probe: probe {tuple(probe.shape)} and build "
+                         f"{tuple(build_sorted.shape)}: a probe (n_a,) or "
+                         "(B, n_a) takes a build (n_b,), a probe (B, n_a) "
+                         "a build (n_b,) or (B, n_b)")
+
+
 def join_probe(probe: torch.Tensor, build_sorted: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, cnt) per probe key against the ascending build column:
-    ``lo[i] = #{b < a_i}``, ``cnt[i] = #{b == a_i}``, both int32.
+    ``lo[i] = #{b < a_i}``, ``cnt[i] = #{b == a_i}``, both int32 and of
+    the probe's shape.
 
-    The probe may be in any order.  Sentinel keys (probe pads 2^31-1,
-    build pads 2^31-2, the negative UNBOUND keys) need no padding step:
-    they never match, and a probe pad's ``lo`` is ``len(build_sorted)``.
-    On CUDA this is the hand-written kernel ``csrc/join_probe.cu``, which
-    replaces the TPU kernel ``repro/kernels/mergejoin.py::join_probe_kernel``
-    and reads the build column in 16-byte vectors: a build column that is
-    not 16-byte aligned (a view at an offset) raises.
+    A batch of B rows: a probe ``(B, n_a)`` against one build ``(n_b,)``
+    for every row, or against a build ``(B, n_b)``, row r of the probe in
+    row r of the build.  Either form is one launch.  The probe may be in
+    any order.  Sentinel keys (probe pads 2^31-1, build pads 2^31-2, the
+    negative UNBOUND keys) need no padding step: they never match, and a
+    probe pad's ``lo`` is ``n_b``.  On CUDA this is the hand-written
+    kernel ``csrc/join_probe.cu``, which replaces the TPU kernel
+    ``repro/kernels/mergejoin.py::join_probe_kernel`` and reads the build
+    in 16-byte vectors: a build that is not 16-byte aligned (a view at an
+    offset, or rows of a width that is not a multiple of 4 keys) raises.
     """
+    _check_probe_shapes(probe, build_sorted)
     if probe.device.type == "cpu" and build_sorted.device.type == "cpu":
         return ref.join_probe_ref(probe, build_sorted)
     if probe.device.type != "cuda" or probe.device != build_sorted.device:
         raise ValueError(f"join_probe: probe on {probe.device} and build on "
                          f"{build_sorted.device}; both must be on one CUDA "
                          "device (or both on the CPU)")
-    _check_int32_column("join_probe", "probe", probe)
-    _check_int32_column("join_probe", "build_sorted", build_sorted)
-    if build_sorted.numel() and build_sorted.data_ptr() % 16:
+    for name, t in (("probe", probe), ("build_sorted", build_sorted)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"join_probe: {name} must be a contiguous int32 "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    per_row = build_sorted.dim() == 2
+    batch = probe.shape[0] if per_row else 1
+    n_a, n_b = probe.shape[-1], build_sorted.shape[-1]
+    if build_sorted.numel() and (build_sorted.data_ptr() % 16 or
+                                 (batch > 1 and n_b % 4)):
         raise ValueError("join_probe: the build column must be 16-byte "
-                         "aligned (a fresh tensor, not a view at an offset)")
-    n_a, n_b = probe.numel(), build_sorted.numel()
+                         "aligned (a fresh tensor, not a view at an offset; "
+                         "rows of a multiple of 4 keys)")
     if n_b >= 2**31:
         raise ValueError(f"join_probe: {n_b} build keys would overflow an "
                          "int32 rank")
+    if batch > 65535:
+        raise ValueError(f"join_probe: {batch} rows exceed the grid's "
+                         "65,535")
     lo = torch.empty_like(probe)
     cnt = torch.empty_like(probe)
-    if n_a == 0:
+    if probe.numel() == 0:
         return lo, cnt
     sms = _sm_count(probe.device.index)
-    stride, n_splitters, blocks, smem = _probe_plan(n_a, n_b, sms)
+    # one build for every row: the rows end to end are one probe
+    n_keys = n_a if per_row else probe.numel()
+    stride, n_splitters, blocks, smem = _probe_plan(n_keys, n_b, sms, batch)
     stream = torch.cuda.current_stream(probe.device).cuda_stream
     with torch.cuda.device(probe.device):
-        status = _join_probe_fn()(
-            probe.data_ptr(), n_a, build_sorted.data_ptr(), n_b,
-            lo.data_ptr(), cnt.data_ptr(), stride.bit_length() - 1,
-            n_splitters, smem, blocks, PROBE_THREADS, sms, stream)
+        if per_row:
+            status = _join_probe_fn("join_probe_batched_launch")(
+                probe.data_ptr(), n_a, build_sorted.data_ptr(), n_b, batch,
+                lo.data_ptr(), cnt.data_ptr(), stride.bit_length() - 1,
+                n_splitters, smem, blocks, PROBE_THREADS, sms, stream)
+        else:
+            status = _join_probe_fn()(
+                probe.data_ptr(), n_keys, build_sorted.data_ptr(), n_b,
+                lo.data_ptr(), cnt.data_ptr(), stride.bit_length() - 1,
+                n_splitters, smem, blocks, PROBE_THREADS, sms, stream)
     if status != 0:
         raise KernelLaunchError(f"join_probe kernel launch failed: "
                                 f"CUDA error {status}")

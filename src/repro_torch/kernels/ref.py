@@ -24,7 +24,9 @@ def join_probe_ref(probe: torch.Tensor, build_sorted: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, cnt): lower-bound index and match count of each probe key in
     the ascending build column — the two arrays the sort-merge join
-    expansion needs.  int32 in, int32 out."""
+    expansion needs.  int32 in, int32 out, of the probe's shape.  A
+    batch: a probe ``(B, n_a)`` against one build ``(n_b,)`` for every
+    row, or against ``(B, n_b)``, each row ranked in its own build row."""
     lo = torch.searchsorted(build_sorted, probe, out_int32=True)
     hi = torch.searchsorted(build_sorted, probe, right=True, out_int32=True)
     return lo, hi - lo

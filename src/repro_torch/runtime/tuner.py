@@ -26,11 +26,10 @@ launch never reshapes the menu.  The smallest shape is never retired.
 All decisions are deterministic given the observation stream.  A copy
 of the reference package's module.
 
-Only a batch that is one launch is observed.  The port's executors run
-a batch's bindings in turn, so the engine pads nothing and observes
-nothing today: the menu stays whole, and only its largest shape (the
-chunk size) is read.  It starts to move once a batch becomes one
-launch.
+Only a batch that is one launch sequence is observed: the torch
+backend's (``PreparedQuery.vectorized_batch``).  The eager and
+distributed seats run a batch's bindings in turn, so the engine neither
+pads nor observes their batches.
 """
 
 from __future__ import annotations

@@ -5,7 +5,12 @@ The same seeded numpy inputs go through ``repro.core.jexec`` and
 equal exactly (everything is int32; float32 keys are compared bitwise).
 Inputs carry the executor's hazards: PAD tails, UNBOUND values,
 duplicate join keys, several shared variables (``needs_compact``), the
-cross join, overflowing capacities, and values past 2**24."""
+cross join, overflowing capacities, and values past 2**24.
+
+The port's operators carry a leading batch axis.  The first tests run
+them at a batch of one; ``test_batched_*`` run B bindings of unlike
+contents, counts and constants in one call and hold each row against the
+reference's operator on that binding alone."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +39,9 @@ def _rel(rng, cap, k, n, hi=12, unbound=0.1):
 def pair(cols, data, n, ovf=False):
     r = RJ.JBindings(tuple(cols), jnp.asarray(data),
                      jnp.asarray(np.int32(n)), jnp.asarray(ovf))
-    t = TJ.JBindings(tuple(cols), torch.from_numpy(data.copy()),
-                     torch.tensor(n, dtype=torch.int32), torch.tensor(ovf))
+    t = TJ.JBindings(tuple(cols), torch.from_numpy(data.copy())[None],
+                     torch.tensor([n], dtype=torch.int32),
+                     torch.tensor([ovf]))
     return r, t
 
 
@@ -50,17 +56,18 @@ def same_arrays(r, t):
         np.testing.assert_array_equal(r, t)
 
 
-def same_triple(r, t):
-    """(data, n, overflow) tuples."""
-    same_arrays(r[0], t[0])
-    assert t[1].dtype == torch.int32
-    assert int(r[1]) == int(t[1])
-    assert bool(r[2]) == bool(t[2])
+def same_triple(r, t, row=0):
+    """(data, n, overflow) tuples: the reference's one binding against
+    row ``row`` of the port's batch."""
+    same_arrays(r[0], t[0][row])
+    assert t[1].dtype == torch.int32 and t[1].dim() == 1
+    assert int(r[1]) == int(t[1][row])
+    assert bool(r[2]) == bool(t[2][row])
 
 
-def same_rel(r, t):
+def same_rel(r, t, row=0):
     assert r.cols == t.cols
-    same_triple((r.data, r.n, r.overflow), (t.data, t.n, t.overflow))
+    same_triple((r.data, r.n, r.overflow), (t.data, t.n, t.overflow), row)
 
 
 def table(rng, n, cap, hi=20):
@@ -81,7 +88,8 @@ def test_compact(out_cap):
     data = _rel(rng, 64, 3, 64)
     keep = rng.random(64) < 0.4
     r = RJ._compact(jnp.asarray(data), jnp.asarray(keep), out_cap)
-    t = TJ._compact(torch.from_numpy(data), torch.from_numpy(keep), out_cap)
+    t = TJ._compact(torch.from_numpy(data)[None], torch.from_numpy(keep)[None],
+                    out_cap)
     same_triple(r, t)
 
 
@@ -150,11 +158,11 @@ def test_build_key_and_presort():
     r, t = pair(("?x", "?y"), data, 20)
     kr = RJ.build_key(r, 1)
     kt = TJ.build_key(t, 1)
-    same_arrays(kr, kt)
+    same_arrays(kr, kt[0])
     order_r = jnp.argsort(kr).astype(jnp.int32)
     order_t, sorted_t = TJ._presort(kt)
-    same_arrays(order_r, order_t)
-    same_arrays(kr[order_r], sorted_t)
+    same_arrays(order_r, order_t[0])
+    same_arrays(kr[order_r], sorted_t[0])
 
 
 JOIN_SHAPES = {
@@ -185,7 +193,7 @@ def test_device_join_presorted(out_cap):
     rb, tb = pair(("?y", "?z"), _rel(rng, 16, 2, 9, hi=5), 9)
     kr = RJ.build_key(rb, 0)
     order_r = jnp.argsort(kr).astype(jnp.int32)
-    pre_t = TJ._presort(TJ.build_key(tb, 0))
+    pre_t = TJ._presort(TJ.build_key(tb, 0)[0])   # one build for the batch
     same_rel(RJ.device_join(ra, rb, out_cap, (order_r, kr[order_r])),
              TJ.device_join(ta, tb, out_cap, pre_t))
 
@@ -209,7 +217,7 @@ def test_device_left_join(with_expr, out_cap, cols):
         jnp.asarray(vals), jnp.asarray(fc), [0])
     t = TJ.device_left_join(
         ta, tb, out_cap, _cond(talg, 3) if with_expr else None,
-        torch.from_numpy(vals), torch.from_numpy(fc), [0])
+        torch.from_numpy(vals), torch.from_numpy(fc)[None], [0])
     same_rel(r, t)
 
 
@@ -269,7 +277,7 @@ def test_device_filter(values, name):
     r = RJ.device_filter(ra, FILTERS[name](ralg), jnp.asarray(values),
                          jnp.asarray(fc), [0])
     t = TJ.device_filter(ta, FILTERS[name](talg), torch.from_numpy(values),
-                         torch.from_numpy(fc), [0])
+                         torch.from_numpy(fc)[None], [0])
     same_rel(r, t)
 
 
@@ -287,7 +295,7 @@ def test_device_resize(out_cap):
     r, rovf = RJ.device_resize(ra, out_cap)
     t, tovf = TJ.device_resize(ta, out_cap)
     same_rel(r, t)
-    assert bool(rovf) == bool(tovf)
+    assert bool(rovf) == bool(tovf[0])
 
 
 @pytest.mark.parametrize("k", [0, 1, 2, 3])
@@ -327,7 +335,7 @@ def test_order_separates_two_pow_24_plus_one(values):
         r = RJ.device_order(ra, (("?x", asc),), jnp.asarray(values))
         t = TJ.device_order(ta, (("?x", asc),), torch.from_numpy(values))
         same_rel(r, t)
-        got = [TERMS[i] for i in t.data[:5, 0].tolist()]
+        got = [TERMS[i] for i in t.data[0, :5, 0].tolist()]
         want = ['"10"', '"16777216"', '"16777217"', '"16777217"',
                 '"16777217.5"']
         assert got == (want if asc else want[::-1])
@@ -384,3 +392,185 @@ def test_prepare_value_keys_rejects_indistinguishable_literal():
     same_arrays(RJ.prepare_value_keys(_Cat(d_r), RSpine(order=(("?x", True),)), []),
                 torch.from_numpy(TJ.prepare_value_keys(
                     _Cat(d_t), TSpine(order=(("?x", True),)), [])))
+
+
+# ---------------------------------------------------------------------------
+# a batch of bindings: one port call, each row against the reference alone
+# ---------------------------------------------------------------------------
+
+NS = (25, 0, 31, 7)        # valid rows of each binding (one empty)
+
+
+def batch(rng, cols, cap, ns=NS, hi=6, unbound=0.1):
+    """Bindings of one relation shape with unlike contents and counts:
+    the reference's relation of each, and the port's batch of all."""
+    datas = [_rel(rng, cap, len(cols), n, hi, unbound) for n in ns]
+    refs = [pair(cols, d, n)[0] for d, n in zip(datas, ns)]
+    t = TJ.JBindings(tuple(cols), torch.from_numpy(np.stack(datas)),
+                     torch.tensor(ns, dtype=torch.int32),
+                     torch.zeros(len(ns), dtype=torch.bool))
+    return refs, t
+
+
+@pytest.mark.parametrize("out_cap", [8, 64])
+@pytest.mark.parametrize("shared_rows", [False, True])
+def test_batched_compact(out_cap, shared_rows):
+    """Per-binding stable compaction; ``shared_rows``: one (R, k) table
+    every binding selects from."""
+    rng = np.random.default_rng(out_cap)
+    keep = rng.random((4, 64)) < np.array([0.1, 0.0, 0.6, 1.0])[:, None]
+    datas = [_rel(rng, 64, 3, 64) for _ in range(4)]
+    if shared_rows:
+        datas = [datas[0]] * 4
+        t = TJ._compact(torch.from_numpy(datas[0]), torch.from_numpy(keep),
+                        out_cap)
+    else:
+        t = TJ._compact(torch.from_numpy(np.stack(datas)),
+                        torch.from_numpy(keep), out_cap)
+    for row, (d, k) in enumerate(zip(datas, keep)):
+        same_triple(RJ._compact(jnp.asarray(d), jnp.asarray(k), out_cap), t,
+                    row)
+
+
+SUBJECTS = (3, 19, 99, -1)     # present, present, absent, UNBOUND
+
+
+@pytest.mark.parametrize("out_cap", [2, 16])
+def test_batched_scans(out_cap):
+    """A (B,) column of constants selects each binding's rows: the full
+    scan (bound subject, object or both), the windowed scan and the
+    triples-table scan."""
+    rng = np.random.default_rng(21)
+    rows = table(rng, 60, 64)
+    n = np.int32(60)
+    subj = np.array(SUBJECTS, np.int32)
+    obj = rows[[0, 5, 70 % 60, 9], 1]
+    tn = torch.tensor(60, dtype=torch.int32)
+    for s, o, take in [(subj, None, (1,)), (None, obj, (0,)),
+                       (subj, obj, ())]:
+        t = TJ.device_scan(torch.from_numpy(rows), tn,
+                           None if s is None else torch.from_numpy(s),
+                           None if o is None else torch.from_numpy(o),
+                           False, take, out_cap)
+        for row in range(4):
+            r = RJ.device_scan(
+                jnp.asarray(rows), jnp.asarray(n),
+                None if s is None else jnp.asarray(s[row]),
+                None if o is None else jnp.asarray(o[row]), False, take,
+                out_cap)
+            same_triple(r, t, row)
+    t = TJ.device_scan_windowed(torch.from_numpy(rows), tn,
+                                torch.from_numpy(subj), (1,), out_cap)
+    for row in range(4):
+        same_triple(RJ.device_scan_windowed(
+            jnp.asarray(rows), jnp.asarray(n), jnp.asarray(subj[row]), (1,),
+            out_cap), t, row)
+    tt = np.concatenate([rng.integers(0, 5, (100, 3)).astype(np.int32),
+                         np.full((28, 3), PAD, np.int32)])
+    s = np.array([2, 0, 7, 4], np.int32)
+    t = TJ.device_scan_tt(torch.from_numpy(tt),
+                          torch.tensor(100, dtype=torch.int32),
+                          torch.from_numpy(s), 1, None, ((0, 2),), (2,),
+                          out_cap)
+    for row in range(4):
+        same_triple(RJ.device_scan_tt(
+            jnp.asarray(tt), jnp.asarray(np.int32(100)), jnp.asarray(s[row]),
+            1, None, ((0, 2),), (2,), out_cap), t, row)
+
+
+@pytest.mark.parametrize("shape", sorted(JOIN_SHAPES))
+@pytest.mark.parametrize("out_cap", [8, 512])
+def test_batched_join(shape, out_cap):
+    """A build per binding: each row probes its own build."""
+    rng = np.random.default_rng(31)
+    ca, cb = JOIN_SHAPES[shape]
+    ra, ta = batch(rng, ca, 32)
+    rb, tb = batch(rng, cb, 16, ns=(13, 9, 0, 16))
+    t = TJ.device_join(ta, tb, out_cap)
+    for row in range(len(NS)):
+        same_rel(RJ.device_join(ra[row], rb[row], out_cap), t, row)
+
+
+@pytest.mark.parametrize("out_cap", [16, 256])
+def test_batched_join_one_build(out_cap):
+    """One presorted build for the whole batch (a hoisted scan): the
+    relation is a view of one row, its key a (cap,) column."""
+    rng = np.random.default_rng(32)
+    ra, ta = batch(rng, ("?x", "?y"), 32, hi=5)
+    rb, tb = pair(("?y", "?z"), _rel(rng, 16, 2, 9, hi=5), 9)
+    kr = RJ.build_key(rb, 0)
+    order_r = jnp.argsort(kr).astype(jnp.int32)
+    pre_t = TJ._presort(TJ.build_key(tb, 0)[0])
+    t = TJ.device_join(ta, TJ._broadcast(tb, len(NS)), out_cap, pre_t)
+    for row in range(len(NS)):
+        same_rel(RJ.device_join(ra[row], rb, out_cap,
+                                (order_r, kr[order_r])), t, row)
+
+
+@pytest.mark.parametrize("with_expr", [False, True])
+@pytest.mark.parametrize("out_cap", [8, 256])
+def test_batched_left_join_and_union(with_expr, out_cap):
+    """OPTIONAL (its condition's constant a per-binding column of
+    ``fconsts``) and UNION over a batch."""
+    rng = np.random.default_rng(33)
+    ca, cb = JOIN_SHAPES["multi-key"]
+    ra, ta = batch(rng, ca, 32, hi=7)
+    rb, tb = batch(rng, cb, 16, ns=(10, 16, 3, 0), hi=7)
+    vals = np.empty((0, 4), np.float32)
+    fc = np.array([[3], [0], [5], [6]], np.int32)
+    t = TJ.device_left_join(ta, tb, out_cap,
+                            _cond(talg, 3) if with_expr else None,
+                            torch.from_numpy(vals), torch.from_numpy(fc), [0])
+    u = TJ.device_union(ta, tb, out_cap)
+    for row in range(len(NS)):
+        r = RJ.device_left_join(ra[row], rb[row], out_cap,
+                                _cond(ralg, 3) if with_expr else None,
+                                jnp.asarray(vals), jnp.asarray(fc[row]), [0])
+        same_rel(r, t, row)
+        same_rel(RJ.device_union(ra[row], rb[row], out_cap), u, row)
+
+
+@pytest.mark.parametrize("name", ["and-or-not", "eq-const", "lt-literal",
+                                  "ge-var", "le-const"])
+def test_batched_filter(values, name):
+    """Filter constants are a (B, n_fc) stack: each binding its own."""
+    rng = np.random.default_rng(len(name) + 40)
+    datas = [_value_rel(rng) for _ in range(3)]
+    ns = (24, 0, 17)
+    t = TJ.JBindings(("?x", "?y", "?z"), torch.from_numpy(np.stack(datas)),
+                     torch.tensor(ns, dtype=torch.int32),
+                     torch.zeros(3, dtype=torch.bool))
+    fc = np.array([[4, 1, 8], [0, 0, 0], [9, 3, 2]], np.int32)
+    got = TJ.device_filter(t, FILTERS[name](talg), torch.from_numpy(values),
+                           torch.from_numpy(fc), [0])
+    for row in range(3):
+        ra, _ = pair(("?x", "?y", "?z"), datas[row], ns[row])
+        r = RJ.device_filter(ra, FILTERS[name](ralg), jnp.asarray(values),
+                             jnp.asarray(fc[row]), [0])
+        same_rel(r, got, row)
+
+
+@pytest.mark.parametrize("keys", ORDERS[:4], ids=[str(o) for o in ORDERS[:4]])
+def test_batched_modifiers(values, keys):
+    """The spine's operators over a batch: ORDER BY, project, DISTINCT,
+    resize and OFFSET/LIMIT, each binding in its own order."""
+    rng = np.random.default_rng(len(keys) + 50)
+    datas = [_value_rel(rng, n=n) for n in (24, 0, 30, 1)]
+    ns = (24, 0, 30, 1)
+    t = TJ.JBindings(("?x", "?y", "?z"), torch.from_numpy(np.stack(datas)),
+                     torch.tensor(ns, dtype=torch.int32),
+                     torch.zeros(4, dtype=torch.bool))
+    steps = [
+        lambda m, b, v: m.device_order(b, keys, v),
+        lambda m, b, v: m.device_project(b, ("?z", "?x")),
+        lambda m, b, v: m.device_distinct(m.device_project(b, ("?x",))),
+        lambda m, b, v: m.device_resize(b, 16)[0],
+        lambda m, b, v: m.device_slice(b, 3, 5),
+    ]
+    for step in steps:
+        got = step(TJ, t, torch.from_numpy(values))
+        for row in range(4):
+            ra, _ = pair(("?x", "?y", "?z"), datas[row], ns[row])
+            same_rel(step(RJ, ra, jnp.asarray(values)), got, row)
+    _, ovf = TJ.device_resize(t, 16)
+    assert ovf.tolist() == [n > 16 for n in ns]

@@ -117,6 +117,39 @@ def _adversarial():
 ADVERSARIAL = _adversarial()
 
 
+def _batch_cases():
+    """Batches of probe rows against one build for every row (``shared``)
+    or one build a row, of unlike contents: rows of random keys, of
+    sentinels, of long runs, and empty rows (all pads); builds with pad
+    tails of unlike lengths."""
+    rng = np.random.default_rng(21)
+    out = []
+    for batch, n_a, n_b in [(1, 33, 16), (2, 100, 64), (3, 700, 1025),
+                            (7, 64, 200)]:
+        a = rng.integers(-1, 2 * n_b, (batch, n_a)).astype(np.int32)
+        a[:, ::5] = A_SENT
+        a[:, 1::7] = A_NULL
+        builds = []
+        for r in range(batch):
+            live = int(rng.integers(0, n_b + 1))
+            b = np.full(n_b, B_SENT, np.int32)
+            b[:live] = np.sort(rng.integers(0, max(live // 3, 1) + 1, live))
+            if live > 2:
+                b[:2] = B_NULL
+            builds.append(b)
+            if live:                            # keys the build holds
+                pick = a[r, 2::3]
+                pick[:] = b[rng.integers(0, live, len(pick))]
+        if batch > 2:
+            a[-1] = A_SENT                      # a padding binding's row
+        out.append((f"b{batch}-{n_a}x{n_b}-per-row", a, np.stack(builds)))
+        out.append((f"b{batch}-{n_a}x{n_b}-shared", a, builds[0]))
+    return out
+
+
+BATCH_CASES = _batch_cases()
+
+
 @pytest.fixture
 def jax_ref():
     """The JAX package's ``(jnp, ops, ref)`` kernel modules."""
@@ -149,6 +182,35 @@ def test_join_probe_adversarial_matches_reference(name, a, b, jax_ref):
     wlo, wcnt = ref_ref.join_probe_ref(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_array_equal(lo.numpy(), np.asarray(wlo))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+
+
+@pytest.mark.parametrize("name,a,b", BATCH_CASES,
+                         ids=[c[0] for c in BATCH_CASES])
+def test_batched_join_probe_matches_reference(name, a, b, jax_ref):
+    """A batch on the CPU (the plain version) against the reference's
+    Pallas kernel (interpret mode) and its ref, row by row, each row in
+    its own build or in the shared one."""
+    jnp, ref_ops, ref_ref = jax_ref
+    lo, cnt = ops.join_probe(torch.from_numpy(a), torch.from_numpy(b))
+    assert lo.shape == cnt.shape == a.shape
+    assert lo.dtype == cnt.dtype == torch.int32
+    for r in range(a.shape[0]):
+        br = jnp.asarray(b[r] if b.ndim == 2 else b)
+        plo, pcnt = ref_ops.join_probe(jnp.asarray(a[r]), br,
+                                       force_pallas=True)
+        np.testing.assert_array_equal(lo[r].numpy(), np.asarray(plo))
+        np.testing.assert_array_equal(cnt[r].numpy(), np.asarray(pcnt))
+        wlo, wcnt = ref_ref.join_probe_ref(jnp.asarray(a[r]), br)
+        np.testing.assert_array_equal(lo[r].numpy(), np.asarray(wlo))
+        np.testing.assert_array_equal(cnt[r].numpy(), np.asarray(wcnt))
+
+
+@pytest.mark.parametrize("probe,build", [((3, 5), (2, 8)), ((5,), (1, 8)),
+                                         ((2, 2, 2), (8,)), ((4,), (2, 2, 2))])
+def test_join_probe_rejects_unpaired_shapes(probe, build):
+    with pytest.raises(ValueError, match="probe"):
+        ops.join_probe(torch.zeros(probe, dtype=torch.int32),
+                       torch.zeros(build, dtype=torch.int32))
 
 
 SMS = 132
@@ -184,6 +246,22 @@ def test_probe_plan(n_a, n_b):
         assert stride == max(1, 2**(n_b - 1).bit_length() // ops.SMEM_KEYS)
     if n_a == 1:
         assert blocks == 1
+
+
+@pytest.mark.parametrize("batch", [1, 2, 7, 32, 300])
+@pytest.mark.parametrize("n_a,n_b", [(1, 16), (4096, 2**15), (2**20, 2**19)])
+def test_probe_plan_batched(batch, n_a, n_b):
+    """A batch of rows with a build each: the same stride and tree as
+    one row, and a row's persistent grid cut so that all rows' blocks
+    together fit what the SMs hold at once (at least one block a row)."""
+    one = ops._probe_plan(n_a, n_b, SMS)
+    stride, n_spl, blocks, smem = ops._probe_plan(n_a, n_b, SMS, batch)
+    assert (stride, n_spl, smem) == (one[0], one[1], one[3])
+    per_sm = min(ops.SM_THREADS // ops.PROBE_THREADS,
+                 ops.SM_SMEM_BYTES // (smem + ops.BLOCK_SMEM_RESERVED))
+    assert blocks == min(-(-n_a // ops.PROBE_THREADS),
+                         max(SMS * per_sm // batch, 1))
+    assert blocks >= 1 and (blocks * batch <= SMS * per_sm or blocks == 1)
 
 
 def test_duplicate_run_counts():
@@ -254,4 +332,53 @@ def test_cuda_kernel_refuses_a_misaligned_build():
     before = ops.launches["join_probe"]
     with pytest.raises(ValueError, match="aligned"):
         ops.join_probe(a, b[1:])
+    assert ops.launches["join_probe"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_matches_plain(monkeypatch):
+    """The batched launches against the plain version on the card: each
+    batch case with one build for every row (the rows end to end, one
+    launch) and, where its rows are 16-byte aligned, with a build a row
+    (``join_probe_batched_launch``), at
+    the default ``SMEM_KEYS`` and at small ones that give every window
+    width; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    cases = list(BATCH_CASES)
+    for batch, n_b in [(2, 2**19), (32, 4096), (7, 40000)]:
+        b = np.sort(rng.integers(0, n_b, (batch, n_b)), axis=1)
+        b[:, -n_b // 8:] = B_SENT
+        a = rng.integers(-1, n_b + 1, (batch, 3000)).astype(np.int32)
+        cases.append((f"b{batch}-3000x{n_b}", a, b.astype(np.int32)))
+    for smem_keys in [ops.SMEM_KEYS, 1, 4, 16, 64]:
+        monkeypatch.setattr(ops, "SMEM_KEYS", smem_keys)
+        for name, a, b in cases:
+            ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+            builds = [tb[0].contiguous()] if tb.dim() == 2 else [tb]
+            # a build a row needs rows of a multiple of 4 keys
+            if tb.dim() == 2 and (len(a) == 1 or b.shape[1] % 4 == 0):
+                builds.append(tb)
+            for build in builds:
+                before = ops.launches["join_probe"]
+                lo, cnt = ops.join_probe(ta, build)
+                torch.cuda.synchronize()
+                assert ops.launches["join_probe"] == before + 1
+                wlo, wcnt = ref.join_probe_ref(ta, build)
+                assert torch.equal(lo, wlo) and torch.equal(cnt, wcnt), \
+                    (name, tuple(build.shape), smem_keys)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_refuses_unaligned_rows():
+    """Rows of a build a row must each be 16-byte aligned: a width that
+    is not a multiple of 4 keys raises, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = torch.zeros((3, 10), dtype=torch.int32, device="cuda")
+    b = torch.zeros((3, 6), dtype=torch.int32, device="cuda")
+    before = ops.launches["join_probe"]
+    with pytest.raises(ValueError, match="aligned"):
+        ops.join_probe(a, b)
     assert ops.launches["join_probe"] == before

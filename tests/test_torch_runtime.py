@@ -345,23 +345,48 @@ def ds(pair):
     pair[1]._engines.clear()
 
 
-def test_auto_batched_matches_sequential_eager(ds):
+def test_auto_batched_matches_sequential_eager(pair):
+    """Auto answers equal the eager oracle's, singly and batched, and
+    both backends serve.  Under one scripted latency per backend the
+    reference's auto engine serves the same script: a batch routed to the
+    card is one launch sequence in both packages, so both pad it to its
+    bucket shape and feed the tuner alike."""
+    rds, ds = pair
+    knobs = dict(router_warmup=1, router_discard=0, router_probe_every=3)
+    script = {"eager": 3.0, "jit": 0.75, "torch": 0.75}
+    rclock, tclock = FakeClock(), FakeClock()
+    ref = rds.engine("auto", runtime=RRuntimeConfig(
+        clock=rclock, verify_plans=False, **knobs))
+    eng = ds.engine("auto", runtime=RuntimeConfig(clock=tclock, **knobs))
+    ScriptedLatency(ref, rclock, script)
+    ScriptedLatency(eng, tclock, script)
     oracle = ds.engine("eager")
-    eng = ds.engine("auto", runtime=RuntimeConfig(
-        router_warmup=1, router_discard=0, router_probe_every=3))
     queries = [Q_FOLLOWS.format(u % 7) for u in range(11)] + \
               [Q_LIKES.format(u % 5) for u in range(9)]
     for q in queries:
         assert eng.query(q).same_as(oracle.query(q)), q
-    for q, got in zip(queries, eng.query_batch(queries)):
+        ref.query(q)
+    # the batch groups go to each signature's seat (a probe would send a
+    # whole group to the loser)
+    eng.config.router_probe_every = ref.config.router_probe_every = 0
+    for q, got, want in zip(queries, eng.query_batch(queries),
+                            ref.query_batch(queries)):
         assert got.same_as(oracle.query(q)), q
+        assert got.same_as(want), q
     rep = eng.runtime_report()
     assert rep["backend"] == "auto" and rep["auto"]
     routed = rep["metrics"]["routed"]
     assert routed.get("eager", 0) > 0 and routed.get("torch", 0) > 0
-    # a sequential run_batch is neither padded nor seen by the tuner
-    assert rep["metrics"]["padding_waste"] == 0.0
-    assert all(b["launches"] == 0 for b in rep["tuner"]["buckets"].values())
+    assert _routes(eng) == _routes(ref)
+    # a batch that is one launch sequence is padded and observed, as the
+    # reference's is
+    rm = ref.metrics.summary()
+    assert rep["metrics"]["padding_waste"] == rm["padding_waste"] > 0
+    assert rep["metrics"]["batch_occupancy"] == rm["batch_occupancy"]
+    assert eng.tuner.report() == json.loads(json.dumps(ref.tuner.report()))
+    assert any(b["launches"] > 0 for b in rep["tuner"]["buckets"].values())
+    ds._engines.clear()
+    rds._engines.clear()
 
 
 def test_auto_never_routes_to_failing_backend(ds):
@@ -598,8 +623,7 @@ def test_port_and_reference_auto_route_identically(pair):
     for q in queries:
         r, t = ref.query(q), eng.query(q)
         assert t.same_as(r), q
-    # groups of 8 and 4: batch shapes of the reference's menu, so its
-    # (padding) device path and the port's (unpadded) one time alike
+    # groups of 8 and 4: batch shapes of the menu
     batch = queries[:8] + queries[9:13]
     for r, t in zip(ref.query_batch(batch), eng.query_batch(batch)):
         assert t.same_as(r)
@@ -607,8 +631,7 @@ def test_port_and_reference_auto_route_identically(pair):
     want = json.loads(json.dumps(ref.router.report()).replace('"jit"',
                                                               '"torch"'))
     assert eng.router.report() == want
-    assert eng.tuner.report() == json.loads(json.dumps(
-        RBatchTuner(ref.batch_shapes, ref.config).report()))
+    assert eng.tuner.report() == json.loads(json.dumps(ref.tuner.report()))
     rm, tm = ref.metrics.summary(), eng.metrics.summary()
     assert tm["routed"] == {k.replace("jit", "torch"): v
                             for k, v in rm["routed"].items()}
