@@ -23,7 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
    sizes around 16 and 4,096 keys, key and validity views at offsets of
    0-3 keys, with the register cut as committed and at 0, and at 2^28
    keys with 1 and 2 buckets its register path against its shared
-   histogram in turns);
+   histogram in turns; its batched launch, ``(B, n)`` keys into ``(B,
+   n_buckets)`` with B of 1, 2, 7 and 32, rows of unlike valid counts,
+   bucket counts on each side of each cut, rows whose length is and is
+   not a whole number of 16-key steps, one launch a call);
 3. the main path, with the kernels' launch counts reset just before and
    read just after: ``Dataset.watdiv(scale)`` (10M triples at scale 340,
    the paper's smallest WatDiv dataset, τ = 0.25) builds its ExtVP on
@@ -56,19 +59,26 @@ Phases (any failure exits non-zero and prints no result line):
    launch counts reset just before and read just after: the ExtVP build
    with ``build_backend="distributed"``, byte-identical to the numpy
    build, then every instance of the basic templates through
-   ``Engine(backend="distributed")``, single and batched, each result
-   equal as a multiset to the single-device card engine's (all but C1
-   and C2, whose static shuffle buckets do not fit on the card at one
-   rank: ``ONE_RANK_CUT``); a pair of CUDA events around every
-   bucket-count call (every shuffle), summed over the path against its
-   bound; the kernel timed on the largest input this path gave it
-   (repeated, so the input sits in L2; repeated with the host's work
-   hidden; with L2 flushed before each call), and a host-clock split of
-   one small call.  6b: two ranks that share the card, spawned by this
+   ``Engine(backend="distributed")``, single and as one batch (one
+   launch sequence, padded to its bucket shape: cold, then warm), each
+   result equal as a multiset to the single-device card engine's (all
+   but C1 and C2, whose static shuffle buckets do not fit on the card at
+   one rank: ``ONE_RANK_CUT``); per template the single p50, the batch
+   walls, the final caps, and the bucket-count and join-probe launches
+   per attempt of the warm batch, which must equal one warm query's; a
+   pair of CUDA events around every bucket-count call (every shuffle),
+   summed over the path against its bound; the kernel timed on the
+   largest one-row input this path gave it (repeated, so the input sits
+   in L2; repeated with the host's work hidden; with L2 flushed before
+   each call), a host-clock split of one small call, and the batched
+   launch at 32 rows of the largest row of the path's batched shuffles
+   against 32 single launches, the plain version, one ``torch.bincount``
+   and its bound.  6b: two ranks that share the card, spawned by this
    script, over gloo at ``--compare-scale``: each loads the store phase
    5 saved, builds ExtVP distributed (byte-identical to the numpy build)
-   and serves all 20 templates, single and batched, held against the
-   single-device card engine; a rank's failure fails the smoke.
+   and serves all 20 templates, single and batched (one launch sequence
+   an attempt), held against the single-device card engine; a rank's
+   failure fails the smoke.
 7. the serving surface, with the kernels' launch counts reset just
    before each part and read just after (all three must run).  7a, at
    ``--scale`` after 6a, on phase 3's dataset: a ``SparqlServer`` takes
@@ -92,7 +102,9 @@ Phases (any failure exits non-zero and prints no result line):
    against greedy and the vp and tt layouts against extvp, results equal
    as multisets and p50s in turns (a template that runs out of card
    memory is left out and listed); the server on the distributed
-   backend at one NCCL rank, where no bucket drains by the clock.  7b,
+   backend at one NCCL rank, where no bucket drains by the clock, then a
+   pass of partial buckets, each one launch sequence padded to its shape
+   (non-zero padding waste, and the tuner's report).  7b,
    at ``--compare-scale`` after phase 5: every template under every
    layout, one traced request of each ``TRACE_NO_CARDINALITY`` template
    with the cardinality report on (timed), a server booted from phase
@@ -1012,6 +1024,126 @@ def phase_bucket_kernel(ops, ref) -> None:
     torch.cuda.empty_cache()
 
 
+#: rows of phase 2's batched bucket-count cases
+BUCKET_BATCHES = (1, 2, 7, 32)
+#: bucket counts of the batched cases: each register count up to the cut
+#: and one above it, one on each side of the shared-histogram cut, and
+#: one in the global path
+BUCKET_BATCH_BUCKETS = (1, 2, 3, 8, 9, 12287, 12288, 12289, 20000)
+#: row lengths of the batched cases: a whole number of 16-key steps (each
+#: row's body aligned) and not
+BUCKET_BATCH_KEYS = (4096, 4096 + 21)
+
+
+def batched_bucket_rows(gen: torch.Generator, batch: int, n: int,
+                        off: int):
+    """``(keys, valid)`` of ``batch`` rows of ``n`` keys on the card, a
+    view ``off`` keys into its buffer: every row with its own share of
+    valid keys and its own valid count (a PAD tail, as the executor's
+    rows have), UNBOUND (-1), A_NULL (-3) and pads among the keys."""
+    keys = torch.randint(-2**31, PROBE_PAD, (batch * n + off,),
+                         generator=gen, dtype=torch.int32)
+    keys[::5] = -1
+    keys[1::7] = -3
+    keys[2::11] = PROBE_PAD
+    valid = torch.rand(batch * n + off, generator=gen) < 0.8
+    k = keys.cuda()[off:].view(batch, n)
+    v = valid.cuda()[off:].view(batch, n)
+    for b in range(batch):
+        v[b, n - (b * 613) % (n + 1):] = False
+        k[b, n - (b * 613) % (n + 1):] = PROBE_PAD
+    return k, v
+
+
+def phase_batched_bucket(ops, ref) -> None:
+    """The batched bucket count (``(B, n)`` keys, ``blockIdx.y`` the row)
+    against its plain version, exactly: B of 1, 2, 7 and 32, each
+    bucket count of ``BUCKET_BATCH_BUCKETS``, rows whose length is and is
+    not a whole number of 16-key steps, at offsets of 0 and 1 key; each
+    call one launch."""
+    gen = torch.Generator().manual_seed(3)
+    calls, paths, bodies = 0, set(), 0
+    for batch in BUCKET_BATCHES:
+        for n in BUCKET_BATCH_KEYS:
+            for off in (0, 1):
+                k, v = batched_bucket_rows(gen, batch, n, off)
+                for nb in BUCKET_BATCH_BUCKETS:
+                    plan = ops._bucket_plan(n, nb, ops._sm_count(0),
+                                            k.data_ptr(), v.data_ptr(),
+                                            batch)
+                    before = ops.launches["bucket_count"]
+                    got = ops.bucket_count(k, v, nb)
+                    torch.cuda.synchronize()
+                    if ops.launches["bucket_count"] != before + 1:
+                        raise AssertionError("bucket_count: a batched call "
+                                             "was not one launch")
+                    want = ref.bucket_count_ref(k, v, nb)
+                    if got.shape != (batch, nb) or not torch.equal(got,
+                                                                   want):
+                        raise AssertionError(
+                            f"batched bucket_count != plain: B {batch}, n "
+                            f"{n}, offset {off}, {nb} buckets, {plan}")
+                    calls += 1
+                    paths.add(plan.path)
+                    bodies += plan.hi > plan.lo
+    if paths != {"registers", "shared", "global"}:
+        raise AssertionError(f"batched bucket_count took paths {paths}")
+    log(f"  batched bucket_count == plain: {calls} calls (B "
+        f"{list(BUCKET_BATCHES)}, rows of {list(BUCKET_BATCH_KEYS)} keys at "
+        f"offsets 0 and 1, {list(BUCKET_BATCH_BUCKETS)} buckets, paths "
+        f"{sorted(paths)}; {bodies} with a 16-byte body), one launch each")
+
+
+def batched_bucket_numbers(ops, ref, n: int, nb: int,
+                           batch: int = 32) -> dict:
+    """The batched bucket count at ``batch`` rows of ``n`` keys and
+    ``nb`` buckets, checked against its plain version and timed (CUDA
+    events, host work hidden): the batched launch, ``batch`` single
+    launches of its rows, the plain version, and the library yardstick,
+    one ``torch.bincount`` over ``row·nb + dest`` of the live keys; the
+    bound is the bytes: ``batch·n·5`` read, ``batch·nb·4`` written."""
+    gen = torch.Generator(device="cuda").manual_seed(n + nb)
+    keys = torch.randint(-2**31, PROBE_PAD, (batch, n), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    valid = torch.rand((batch, n), generator=gen, device="cuda") < 0.75
+    got = ops.bucket_count(keys, valid, nb)
+    want = ref.bucket_count_ref(keys, valid, nb)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"batched bucket_count != plain at {batch} x "
+                             f"{n} keys (max abs err {err})")
+    rows = list(zip(keys.unbind(0), valid.unbind(0)))
+    row_ids = torch.arange(batch, device="cuda")[:, None] * nb
+
+    def singles():
+        for k, v in rows:
+            ops.bucket_count(k, v, nb)
+
+    def library():
+        dest = torch.where(valid & (keys != PROBE_PAD),
+                           row_ids + (keys.long() & 0xFFFFFFFF) % nb,
+                           batch * nb)
+        return torch.bincount(dest.view(-1),
+                              minlength=batch * nb + 1)[:batch * nb]
+
+    out = {"batch": batch, "n": n, "n_buckets": nb,
+           "path": ops._bucket_plan(n, nb, ops._sm_count(0),
+                                    keys.data_ptr(), valid.data_ptr(),
+                                    batch).path,
+           "ms": queued_time_ms(lambda: ops.bucket_count(keys, valid, nb)),
+           "singles_ms": queued_time_ms(singles),
+           "plain_ms": queued_time_ms(
+               lambda: ref.bucket_count_ref(keys, valid, nb)),
+           "library_ms": queued_time_ms(library),
+           "bound_ms": (5 * batch * n + 4 * batch * nb)
+           / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "max_abs_err": err}
+    del keys, valid, rows
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1627,9 +1759,11 @@ def same_multiset(a, b) -> bool:
 
 
 class BucketRecorder:
-    """Keeps the largest input the main path hands the bucket-count
-    kernel, so the kernel can be timed on it afterwards, and records a
-    pair of CUDA events around every call (read only by
+    """Keeps the largest one-row input the main path hands the
+    bucket-count kernel (a shuffle of one binding, or of a relation every
+    binding shares), as a key column, so the kernel can be timed on it
+    afterwards; counts the calls by input shape ``(rows, keys a row)``;
+    and records a pair of CUDA events around every call (read only by
     :meth:`path_times`, after the run).  It calls the wrapper unchanged;
     the launch count stays the wrapper's."""
 
@@ -1642,10 +1776,12 @@ class BucketRecorder:
         self.gc_ms, self.gc_runs, self._gc_t = 0.0, 0, 0.0
 
     def __call__(self, keys, valid, n_buckets):
-        key = (keys.numel(), n_buckets)
+        key = (tuple(keys.shape), n_buckets)
         self.shapes[key] = self.shapes.get(key, 0) + 1
-        if self.best is None or keys.numel() > self.best[0].numel():
-            self.best = (keys.clone(), valid.clone(), n_buckets)
+        if keys.numel() == keys.shape[-1] and (
+                self.best is None or keys.numel() > self.best[0].numel()):
+            self.best = (keys.reshape(-1).clone(), valid.reshape(-1).clone(),
+                         n_buckets)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         idle = torch.cuda.current_stream().query()
@@ -1661,7 +1797,10 @@ class BucketRecorder:
         t2 = time.perf_counter()
         end.record()
         t3 = time.perf_counter()
-        self.events.append((keys.numel(), n_buckets, start, end, idle,
+        self.events.append((keys.numel(), n_buckets * (keys.numel() //
+                                                       max(keys.shape[-1],
+                                                           1)),
+                            start, end, idle,
                             (t3 - t0) * 1e3, (t2 - t1) * 1e3,
                             self.gc_ms - gc0))
         return out
@@ -1720,39 +1859,91 @@ class BucketRecorder:
         self.mod.ops = self.mod.ops.base
 
 
-def serve_distributed(deng, eng, queries, reps: int, order):
+class AttemptCounter:
+    """Counts the distributed executor's launches (one program run per
+    attempt, every binding of a batch in it) while it is entered."""
+
+    def __init__(self, dist_mod):
+        self.cls = dist_mod.DistributedExecutor
+        self.inner = self.cls._shard_program
+        self.n = 0
+
+    def __enter__(self):
+        inner = self.inner
+
+        def counted(ex, *a, **k):
+            self.n += 1
+            return inner(ex, *a, **k)
+
+        self.cls._shard_program = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._shard_program = self.inner
+
+
+def counted_run(ops, attempts: AttemptCounter, fn):
+    """``fn()``, its host-clock ms (the card synchronized after it), and
+    the kernel launches and executor attempts it made."""
+    before, tries = dict(ops.launches), attempts.n
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return out, ms, {"attempts": attempts.n - tries, **{
+        k: ops.launches[k] - before[k] for k in ("bucket_count",
+                                                 "join_probe")}}
+
+
+def serve_distributed(deng, eng, queries, reps: int, order, ops, dmod):
     """Every instance through the distributed engine's ``query`` (cold,
     then ``reps`` warm passes) and each template's instances through its
-    ``query_batch``; every result must equal the single-device engine
-    ``eng``'s as a multiset.  Returns per-template timings."""
+    ``query_batch`` (one launch sequence: cold, then warm), every result
+    equal to the single-device engine ``eng``'s as a multiset.  Each
+    template's warm batch must launch the bucket count and the join probe
+    per attempt as often as one warm query.  Returns per-template
+    timings, launches and final caps."""
     stats = {}
-    for name in order:
-        insts = queries[name]
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        single = [deng.query(q) for q in insts]
-        cold_ms = (time.perf_counter() - t0) * 1e3
-        lat = []
-        for _ in range(reps):
-            for q in insts:
-                t = time.perf_counter()
-                deng.query(q)
-                lat.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        batched = deng.query_batch(insts)
-        batch_ms = (time.perf_counter() - t) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        for q, a, b in zip(insts, single, batched):
-            want = eng.query(q)
-            if not same_multiset(a, want) or not same_multiset(b, want):
-                raise AssertionError(f"{name}: distributed engine != "
-                                     "single-device card engine")
-            del want
-        stats[name] = {"rows": [len(r) for r in single], "lat": lat,
-                       "cold_ms": cold_ms, "batch_ms": batch_ms,
-                       "peak_gib": peak}
-        del single, batched
-        torch.cuda.empty_cache()
+    with AttemptCounter(dmod) as attempts:
+        for name in order:
+            insts = queries[name]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            single = [deng.query(q) for q in insts]
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            lat = []
+            for _ in range(reps):
+                for q in insts:
+                    t = time.perf_counter()
+                    deng.query(q)
+                    lat.append((time.perf_counter() - t) * 1e3)
+            _, _, one = counted_run(ops, attempts,
+                                    lambda: deng.query(insts[0]))
+            batched, cold_batch_ms, cold = counted_run(
+                ops, attempts, lambda: deng.query_batch(insts))
+            _, batch_ms, warm = counted_run(
+                ops, attempts, lambda: deng.query_batch(insts))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for k in ("bucket_count", "join_probe"):
+                if warm[k] * one["attempts"] != one[k] * warm["attempts"]:
+                    raise AssertionError(
+                        f"{name}: a batched attempt launched {k} "
+                        f"{warm[k]} / {warm['attempts']} times, one query "
+                        f"{one[k]} / {one['attempts']}")
+            for q, a, b in zip(insts, single, batched):
+                want = eng.query(q)
+                if not same_multiset(a, want) or not same_multiset(b, want):
+                    raise AssertionError(f"{name}: distributed engine != "
+                                         "single-device card engine")
+                del want
+            stats[name] = {
+                "rows": [len(r) for r in single], "lat": lat,
+                "cold_ms": cold_ms, "cold_batch_ms": cold_batch_ms,
+                "batch_ms": batch_ms, "one_query": one, "cold_batch": cold,
+                "warm_batch": warm, "peak_gib": peak,
+                "caps": list(deng.prepare(insts[0]).executor.caps)}
+            del single, batched
+            torch.cuda.empty_cache()
     return stats
 
 
@@ -1778,7 +1969,8 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
             deng = Engine(ds, backend="distributed")
             order = [n for n in queries if n not in ONE_RANK_CUT]
             t = time.perf_counter()
-            stats = serve_distributed(deng, eng, queries, args.reps, order)
+            stats = serve_distributed(deng, eng, queries, args.reps, order,
+                                      ops, dmod)
             serve_s = time.perf_counter() - t
         launches = dict(ops.launches)
         no_fallbacks(deng, "distributed engine")
@@ -1805,9 +1997,14 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
             st = stats[name]
             log(f"  {name}: rows {st['rows']}, p50 {p(st['lat'], 50):.3f} ms, "
                 f"max {max(st['lat']):.3f} ms of {len(st['lat'])} warm "
-                f"queries, cold {st['cold_ms']:.1f} ms, batch of "
-                f"{len(st['rows'])} {st['batch_ms']:.1f} ms, peak device "
-                f"memory {st['peak_gib']:.2f} GiB")
+                f"queries, cold {st['cold_ms']:.1f} ms; batch of "
+                f"{len(st['rows'])} (one launch sequence) cold "
+                f"{st['cold_batch_ms']:.3f} ms, warm {st['batch_ms']:.3f} "
+                f"ms; launches per attempt, warm batch against one warm "
+                f"query: {json.dumps(st['warm_batch'])} against "
+                f"{json.dumps(st['one_query'])} (cold batch "
+                f"{json.dumps(st['cold_batch'])}); final caps "
+                f"{st['caps']}; peak device memory {st['peak_gib']:.2f} GiB")
         for name in ("S1", "F1"):
             profile_query(deng, queries[name][0], f"{name} distributed")
         for k, v in launches.items():
@@ -1817,8 +2014,10 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
         if ex["all_to_all"] <= 0:
             raise AssertionError("the distributed path made no exchange")
         keys, valid, nb = brec.best
-        shapes = sorted(brec.shapes.items(), key=lambda kv: -kv[0][0])[:5]
-        log(f"  largest bucket_count inputs (keys, buckets): count: {shapes}")
+        shapes = sorted(brec.shapes.items(),
+                        key=lambda kv: -np.prod(kv[0][0]))[:5]
+        log(f"  largest bucket_count inputs ((rows, keys a row), buckets): "
+            f"count: {shapes}")
         bpath = brec.path_times()
         log(f"  bucket_count over the distributed path (CUDA events around "
             f"each call): {bpath['calls']} calls, {bpath['total_ms']:.4f} ms "
@@ -1852,6 +2051,18 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
         split = bucket_host_split_us(ops, ref)
         log(f"  bucket_count host split of a small call (card idle, "
             f"microseconds a call): {json.dumps(split)}")
+        # the batched launch at 32 rows of the largest row a batched
+        # shuffle of this path gave it
+        rows_n = max(shape[-1] for (shape, _), _ in brec.shapes.items()
+                     if shape[0] > 1)
+        batched = batched_bucket_numbers(ops, ref, rows_n, nb)
+        log(f"  batched bucket_count, 32 rows of {rows_n} keys (the "
+            f"largest row of this path's batched shuffles), {nb} bucket, "
+            f"{batched['path']} path: equal; kernel {batched['ms']:.4f} ms, "
+            f"32 single launches {batched['singles_ms']:.4f} ms, plain "
+            f"{batched['plain_ms']:.4f} ms, torch.bincount over row*S + "
+            f"dest {batched['library_ms']:.4f} ms, bound "
+            f"{batched['bound_ms']:.4f} ms (bytes)")
         del deng, brec, keys, valid
         numbers = {"backend": "nccl", "ranks": 1, "scale": args.scale,
                    "build_s": build_s, "exchanges": ex["all_to_all"],
@@ -1860,7 +2071,16 @@ def phase_one_rank(args, ds, eng, host_ext, queries, ops, ref, dmod,
                    "bucket_count_path": bpath,
                    "bucket_count_largest": largest,
                    "bucket_count_host_split": split,
-                   "p50_ms": {n: p(stats[n]["lat"], 50) for n in order}}
+                   "bucket_count_batched": batched,
+                   "p50_ms": {n: p(stats[n]["lat"], 50) for n in order},
+                   "batch_ms": {n: stats[n]["batch_ms"] for n in order},
+                   "batch_launches": {n: stats[n]["warm_batch"]
+                                      for n in order},
+                   "query_launches": {n: stats[n]["one_query"]
+                                      for n in order},
+                   "caps": {n: stats[n]["caps"] for n in order},
+                   "reduced": [f"{', '.join(ONE_RANK_CUT)} left out at one "
+                               "rank: static shuffle buckets"]}
         return dict(bn, launches=launches["bucket_count"],
                     max_abs_err=err), numbers
     finally:
@@ -1942,11 +2162,14 @@ def rank_main(args) -> int:
                                kinds=cat.extvp.kinds, backend="numpy"),
                    ext, f"distributed ExtVP (rank {args.rank} of 2)")
         deng, eng = Engine(ds, backend="distributed"), ds.engine()
-        n = 0
+        n, batch_attempts = 0, {}
         t = time.perf_counter()
         for name, insts in queries.items():
             single = [deng.query(q) for q in insts]
-            batched = deng.query_batch(insts)
+            # each template's instances as one launch sequence an attempt
+            with AttemptCounter(dmod) as attempts:
+                batched = deng.query_batch(insts)
+            batch_attempts[name] = attempts.n
             for q, a, b in zip(insts, single, batched):
                 want = eng.query(q)
                 if not same_multiset(a, want) or not same_multiset(b, want):
@@ -1959,7 +2182,8 @@ def rank_main(args) -> int:
                "exchanges": dmod.exchanges["all_to_all"],
                "rows_sent": dmod.exchanges["rows_sent"],
                "buffer_bytes": dmod.exchanges["buffer_bytes"],
-               "launches": dict(ops.launches)}
+               "launches": dict(ops.launches),
+               "batch_attempts": batch_attempts}
         if min(res["launches"].values()) <= 0 or res["exchanges"] <= 0:
             raise AssertionError(f"rank {args.rank}: a kernel or the "
                                  f"exchange never ran: {res}")
@@ -2557,7 +2781,10 @@ def phase_serve_distributed(ds, eng, queries, here: str) -> dict:
     NCCL as in 6a, over the templates 6a serves: interleaved submits
     with a latency bound of 0 ms, which on one device would drain every
     bucket on the next submit; here only full buckets and the flush
-    drain, and every result equals the single-device engine's."""
+    drain, and every result equals the single-device engine's.  A second
+    pass of ``PARTIAL_INSTANCES`` of each template fills its buckets in
+    part: each bucket is one launch sequence padded to its shape, so
+    the padding waste is not 0 and the tuner observes the batches."""
     import torch.distributed as dist
     from repro_torch import RuntimeConfig, SparqlServer
     rdv = os.path.join(here, "build", "smoke_nccl_rendezvous_serve")
@@ -2577,15 +2804,37 @@ def phase_serve_distributed(ds, eng, queries, here: str) -> dict:
             raise AssertionError("a bucket drained before the flush on the "
                                  "distributed backend")
         m = srv.metrics.summary()
-        del m["routed"]
         log(f"  distributed server (one NCCL rank): {chk['requests']} "
             f"requests ({SERVE_DIST_INSTANCES} of each of {len(names)} "
             f"templates), all {chk['pending_after_submits']} still queued "
             f"after the submits at flush_ms 0, flushed in "
             f"{chk['wall_s']:.1f} s; every result equal to the "
-            f"single-device engine's (multisets); {summary_line(m)}")
+            f"single-device engine's (multisets); {summary_line(m)}, "
+            f"padding waste {m['padding_waste']:.4f}")
+        partial = server_check(srv, eng, serve_queries(
+            ds.schema, 43, PARTIAL_INSTANCES, names), exact=False)
+        m = srv.metrics.summary()
+        del m["routed"]
+        if m["padding_waste"] <= 0:
+            raise AssertionError("the distributed server's buckets were "
+                                 "not padded")
+        tuner = srv.engine.tuner.report()
+        if not any(b["launches"] for b in tuner["buckets"].values()):
+            raise AssertionError("the tuner observed no distributed batch")
+        log(f"  distributed server, {partial['requests']} more requests "
+            f"({PARTIAL_INSTANCES} of each template, buckets padded to "
+            f"their shape) flushed in {partial['wall_s']:.1f} s, equal; "
+            f"both passes: {summary_line(m)}, padding waste "
+            f"{m['padding_waste']:.4f}")
+        log(f"  distributed tuner: menu {tuner['menu']}, active "
+            f"{tuner['active']}, retired {json.dumps(tuner['retired'])}; "
+            f"per shape (launches, per-slot ms, occupancy, padding waste): "
+            + ", ".join(f"{k}: ({v['launches']}, {v['per_slot_ms']}, "
+                        f"{v['occupancy']}, {v['padding_waste']:.4f})"
+                        for k, v in tuner["buckets"].items()
+                        if v["launches"] or v["padding_waste"]))
         del srv
-        return dict(m, check=chk)
+        return dict(m, check=chk, partial=partial, tuner=tuner)
     finally:
         dist.destroy_process_group()
 
@@ -2980,6 +3229,7 @@ def main() -> int:
     batched = phase_batched_probe(ops, ref)
     phase_semijoin_kernel(ops, ref)
     phase_bucket_kernel(ops, ref)
+    phase_batched_bucket(ops, ref)
     stage("[3] main path")
     nums, probe_path, ds, eng, queries = phase_main(
         args, ops, ref, jexec, eb, Dataset, basic_queries)
@@ -3068,7 +3318,8 @@ def main() -> int:
         "exchanges": [r["exchanges"] for r in ranks],
         "rows_sent": [r["rows_sent"] for r in ranks],
         "buffer_bytes": [r["buffer_bytes"] for r in ranks],
-        "results_equal": [r["results_equal"] for r in ranks]}}}),
+        "results_equal": [r["results_equal"] for r in ranks],
+        "batch_attempts": [r["batch_attempts"] for r in ranks]}}}),
         flush=True)
     print(json.dumps({"join_probe_path": probe_path}), flush=True)
     print(json.dumps({"join_probe_batched": dict(

@@ -22,10 +22,14 @@ per device, every rank running the same program on its own shard:
   .bucket_count`).
 
 Every rank runs the operators of :mod:`repro_torch.core.jexec` (the join
-probe in its CUDA kernel); results stay sharded until ``run`` gathers
-them.  This is the PyTorch counterpart of the reference's ``shard_map``
-engine: the same names, capacity seeds, overflow protocol and row order
-(shards concatenated in rank order).  Collectives are issued in one
+probe in its CUDA kernel) over a batch axis: B constant-bindings of a
+template are one launch sequence on every rank, every shuffle one
+bucket-count launch and one ``all_to_all_single`` for the batch, and a
+request is a batch of one.  Results stay sharded until ``run`` /
+``run_batch`` gathers them.  This is the PyTorch counterpart of the
+reference's (vmapped) ``shard_map`` engine: the same names, capacity
+seeds, overflow protocol and row order (shards concatenated in rank
+order).  Collectives are issued in one
 order on every rank, because the program's control flow depends only on
 the plan and the capacity vector, and the capacity vector is the same on
 every rank (the overflow flags are all-reduced before the host reads
@@ -53,11 +57,12 @@ from repro_torch.core.compiler import (
     core_filter_exprs,
 )
 from repro_torch.core.jexec import (
-    JBindings, bounds_from_plan, device_distinct, device_filter, device_join,
-    device_left_join, device_order, device_project, device_resize,
-    device_scan, device_scan_tt, device_slice, device_union, double_caps,
-    prepare_value_keys, _compact, _exec_cols, _false, _mod_cap_seed,
-    _scalar, _step_meta, _tt_meta, _valid_mask,
+    JBindings, bounds_from_plan, build_key, device_distinct, device_filter,
+    device_join, device_left_join, device_order, device_project,
+    device_resize, device_scan, device_scan_tt, device_slice, device_union,
+    double_caps, prepare_value_keys, _broadcast, _compact, _exec_cols,
+    _false, _mod_cap_seed, _presort, _rows, _scalar, _step_meta, _tt_meta,
+    _valid_mask,
 )
 from repro_torch.core.modifiers import ModifierSpine, filter_const_slots
 from repro_torch.core.stats import Catalog
@@ -70,40 +75,15 @@ __all__ = ["DistBindings", "DistributedExecutor", "shard_table",
            "repartition", "extvp_pair_masks_sharded", "exchanges",
            "reset_exchanges"]
 
-
-
-# This executor runs its bindings in turn.  The jexec operators take a
-# batch of bindings (a leading axis on every relation), so each shard-local
-# relation enters them as a batch of one and leaves as row 0.
-
-def _one(cols, data: torch.Tensor, n: torch.Tensor) -> JBindings:
-    """A shard-local relation as a batch of one binding."""
-    return JBindings(cols, data[None], n.reshape(1), _false(data.device, 1))
-
-
-def _first(b: JBindings) -> JBindings:
-    """Row 0 of a batch of one, as a shard-local relation."""
-    return JBindings(b.cols, b.data[0], b.n[0], b.overflow[0])
-
-
-def _compact1(data: torch.Tensor, keep: torch.Tensor, out_cap: int):
-    """:func:`~repro_torch.core.jexec._compact` of one relation."""
-    out, n, ovf = _compact(data, keep[None], out_cap)
-    return out[0], n[0], ovf[0]
-
-
-def _scan1(scan, *args):
-    """A jexec scan of one binding: its batch-of-one result, row 0."""
-    data, n, ovf = scan(*args)
-    return data[0], n[0], ovf[0]
-
 _I32 = torch.int32
 _I64 = torch.int64
 
 #: ``all_to_all``: exchanges (``all_to_all_single`` calls) this process
-#: made; ``buffer_bytes``: the bytes of their send buffers (static
-#: buckets, PAD included); ``rows_sent``: rows this rank put in other
-#: ranks' buckets, read at each launch's host sync
+#: made, one a shuffle of a whole batch; ``buffer_bytes``: the bytes of
+#: their send buffers (static buckets, PAD included: a batch's buffer is
+#: B times a binding's); ``rows_sent``: rows this rank put in other
+#: ranks' buckets, each binding's counted, a shared (bounds-free)
+#: relation's shuffle once, read at each launch's host sync
 exchanges: Dict[str, int] = {"all_to_all": 0, "buffer_bytes": 0,
                              "rows_sent": 0}
 
@@ -170,46 +150,60 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """Exchange rows so that ``uint32(row.key) % n_shards == rank``
-    afterwards.  ``data`` (cap, k) holds this rank's rows, the first ``n``
-    valid.  Returns ``(rows[out_cap, k], n, overflow, sent)``: ``sent``
-    (int64, on the device) counts the rows this rank put in other ranks'
-    buckets; the rest is the reference's return value.
+    afterwards, for every binding of a batch.  ``data`` (B, cap, k) holds
+    this rank's rows of B bindings, the first ``n[b]`` of row b valid.
+    Returns ``(rows[B, out_cap, k], n (B,), overflow (B,), sent (B,))``:
+    ``sent`` (int64, on the device) counts the rows each binding put in
+    other ranks' buckets; the rest is the reference's return value, row
+    by row (its vmapped ``repartition``).
 
     Buckets are static, as in the reference: ``bucket_cap`` rows for
-    every destination, so the exchange is one ``all_to_all_single`` of
-    equal splits and needs no host sync.  The bucket-count kernel gives
-    the rows bound for each destination; their exclusive prefix sum
-    gives each destination group's start in the stable sort by
+    every destination and binding, so the whole batch is one
+    ``all_to_all_single`` of equal splits and needs no host sync.  One
+    bucket-count launch gives every binding's rows bound for each
+    destination; their exclusive prefix sum along the row gives each
+    destination group's start in the binding's stable sort by
     destination, so a row's slot in its bucket is its rank in that sort
-    minus its group's start.  A destination with more than
-    ``bucket_cap`` rows sets ``overflow`` (its extra rows are not
-    written) and the host retries with larger capacities.  The reference
-    also reduces the flag across ranks here (``pmax``); the executor
-    all-reduces every step's flag once per launch, which covers it."""
+    minus its group's start.  The send buffer is laid out destination
+    first, ``(S, B, bucket_cap, k)``, so that rank r's split holds every
+    binding's bucket for r; the receiver reorders it to ``(B, S ·
+    bucket_cap, k)`` (source ranks in rank order) and compacts each row,
+    which gives the reference's order: source-major, then stable by
+    position.  A destination with more than ``bucket_cap`` rows sets its
+    binding's ``overflow`` (its extra rows are not written) and the host
+    retries with larger capacities.  The reference also reduces the flag
+    across ranks here (``pmax``); the executor all-reduces every step's
+    flag once per launch, which covers it."""
     n_shards = dist.get_world_size(group)
-    cap, k = data.shape
+    batch, cap, k = data.shape
     dev = data.device
     valid = _valid_mask(cap, n)
-    key = data[:, key_col].contiguous()
+    key = data[:, :, key_col].contiguous()
     # a valid row never carries the probe pad, so the kernel's pad rule
     # drops nothing that repartition sends
     counts = ops.bucket_count(key, valid, n_shards).to(_I64)
     dest = torch.where(valid, (key.to(_I64) & 0xFFFFFFFF) % n_shards,
                        n_shards)
     bucket_cap = max(16, round_up_pow2(2 * cap // n_shards + 16))
-    order = torch.argsort(dest, stable=True)
-    sdest = dest[order]
-    ends = torch.cumsum(counts, 0)
+    order = torch.argsort(dest, dim=1, stable=True)
+    sdest = torch.gather(dest, 1, order)
+    ends = torch.cumsum(counts, 1)
     # group starts; the invalid rows (dest == n_shards) start after all
-    starts = torch.cat([ends - counts, ends[-1:]])
-    rank = torch.arange(cap, dtype=_I64, device=dev) - starts[sdest]
-    overflow = (counts > bucket_cap).any()
-    # torch has no dropping scatter: rows out of bucket go to a dump row
+    starts = torch.cat([ends - counts, ends[:, -1:]], 1)
+    rank = torch.arange(cap, dtype=_I64, device=dev) - \
+        torch.gather(starts, 1, sdest)
+    overflow = (counts > bucket_cap).any(1)
+    # flat int64 slot dest·(B·bucket_cap) + b·bucket_cap + rank; torch has
+    # no dropping scatter, so rows out of bucket go to a dump row
+    block = batch * bucket_cap
     fits = (rank < bucket_cap) & (sdest < n_shards)
-    slot = torch.where(fits, sdest * bucket_cap + rank, n_shards * bucket_cap)
-    send = torch.full((n_shards * bucket_cap + 1, k), PAD, dtype=data.dtype,
+    slot = torch.where(
+        fits, sdest * block + rank + torch.arange(
+            0, block, bucket_cap, dtype=_I64, device=dev)[:, None],
+        n_shards * block)
+    send = torch.full((n_shards * block + 1, k), PAD, dtype=data.dtype,
                       device=dev)
-    send[slot] = data[order]
+    send[slot.reshape(-1)] = data[_rows(batch, dev), order].reshape(-1, k)
     send = send[:-1]
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
@@ -218,8 +212,10 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
     del send
     me = dist.get_rank(group)
     placed = torch.clamp(counts, max=bucket_cap)
-    sent = placed.sum() - placed[me]
-    out, n_out, ovf = _compact1(recv, recv[:, 0] != PAD, out_cap)
+    sent = placed.sum(1) - placed[:, me]
+    recv = recv.view(n_shards, batch, bucket_cap, k).transpose(0, 1) \
+        .reshape(batch, n_shards * bucket_cap, k)
+    out, n_out, ovf = _compact(recv, recv[:, :, 0] != PAD, out_cap)
     return out, n_out, overflow | ovf, sent
 
 
@@ -229,11 +225,29 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
 
 @dataclass
 class DistBindings:
+    """This rank's shard of a relation of a batch of bindings: row b of
+    ``data`` (B, cap, k), ``n`` (B,) and ``overflow`` (B,) is binding b's,
+    as in :class:`~repro_torch.core.jexec.JBindings`.  A relation no
+    bound constant reaches (a scan that binds none, and what is made of
+    such relations alone) is the same for every binding and is kept as a
+    batch of 1, as the reference's ``vmap`` keeps an unbatched value."""
+
     cols: Tuple[str, ...]
-    data: torch.Tensor       # (cap, k) — this rank's shard
+    data: torch.Tensor
     n: torch.Tensor
     overflow: torch.Tensor
     part_key: Optional[str]  # variable this relation is hash-partitioned by
+
+    @property
+    def batch(self) -> int:
+        return self.data.shape[0]
+
+    def rel(self, batch: int = 1) -> JBindings:
+        """As jexec relations with a clean overflow flag, a shared
+        relation broadcast (views) to ``batch`` rows."""
+        return _broadcast(JBindings(self.cols, self.data, self.n,
+                                    _false(self.data.device, self.batch)),
+                          max(batch, self.batch))
 
 
 @dataclass
@@ -245,8 +259,12 @@ class _DistInputs:
     values: torch.Tensor             # (nv, 4) float32 numeric keys
 
 
-#: per flat step index: the hoisted (bounds-independent) scan of a batch
-_Shared = Dict[int, DistBindings]
+def _shared_build(b: DistBindings, key: str, batch: int):
+    """The presorted build key of a relation every binding shares, for
+    the one-build form of the join probe; ``None`` for a build a row."""
+    if b.batch == batch:
+        return None
+    return _presort(build_key(b.rel(), b.cols.index(key))[0])
 
 
 class DistributedExecutor:
@@ -410,6 +428,16 @@ class DistributedExecutor:
                         acc_cols.append(v)
 
     # -- this rank's program ----------------------------------------------------
+    #
+    # Every operator runs once for the whole batch of B bindings: bounds
+    # are (B, n_steps, 2), filter constants (B, n_fc).  A relation keeps
+    # batch 1 while no bound constant or filter constant reaches it, so a
+    # bounds-free scan, its shuffle and whatever joins it with other such
+    # relations run once a launch; it is broadcast (views) only where it
+    # meets a bound relation, and as a join's build it is probed as one
+    # build for every row.  Which relations are shared follows from the
+    # plan alone, so every rank issues the same collectives in one order.
+
     @functools.cached_property
     def _device_inputs(self) -> _DistInputs:
         """This rank's shard of every scanned table (the copy
@@ -425,26 +453,34 @@ class DistributedExecutor:
         values = torch.from_numpy(self._value_keys).to(dev)
         return _DistInputs(rows, ns, values)
 
+    def _filter_batch(self, expr, batch: int) -> int:
+        """The batch a relation needs to go through ``expr``: every
+        binding's row where the filter reads a constant slot, else 1."""
+        if expr is not None and filter_const_slots((expr,)):
+            return batch
+        return 1
+
     def _scan_step(self, i: int, step: ScanStep, inp: _DistInputs,
                    bounds: torch.Tensor) -> DistBindings:
-        """One shard-local scan.  TT steps (unbound predicates) read this
-        rank's slice of the subject-sharded triples table; VP/ExtVP
+        """One shard-local scan for every binding (a batch of 1 when the
+        pattern binds no constant).  TT steps (unbound predicates) read
+        this rank's slice of the subject-sharded triples table; VP/ExtVP
         steps read the copy :attr:`scan_copy` picked."""
         tp = step.tp
         rows, nrows = inp.rows[i], inp.ns[i]
         if step.uses_tt:
             s_b, p_b, o_b, eqs, take, cols = _tt_meta(tp)
-            sb = bounds[i, 0] if s_b is not None else None
-            ob = bounds[i, 1] if o_b is not None else None
-            data, n, ovf = _scan1(device_scan_tt, rows, nrows, sb, p_b, ob,
-                                  eqs, take, rows.shape[0])
+            sb = bounds[:, i, 0] if s_b is not None else None
+            ob = bounds[:, i, 1] if o_b is not None else None
+            data, n, ovf = device_scan_tt(rows, nrows, sb, p_b, ob, eqs,
+                                          take, rows.shape[0])
             part_var = tp.s if is_var(tp.s) else None
             return DistBindings(cols, data, n, ovf, part_var)
         s_bound, o_bound, same, take, cols = _step_meta(step)
-        data, n, ovf = _scan1(device_scan, rows, nrows,
-                              bounds[i, 0] if s_bound is not None else None,
-                              bounds[i, 1] if o_bound is not None else None,
-                              same, take, rows.shape[0])
+        data, n, ovf = device_scan(
+            rows, nrows, bounds[:, i, 0] if s_bound is not None else None,
+            bounds[:, i, 1] if o_bound is not None else None, same, take,
+            rows.shape[0])
         copy = self.scan_copy[i]
         part_var = None
         if copy == "s" and is_var(tp.s):
@@ -454,23 +490,22 @@ class DistributedExecutor:
         return DistBindings(cols, data, n, ovf, part_var)
 
     def _compose_bgp(self, seg: BGPSeg, caps, inp: _DistInputs, bounds,
-                     ovfs: List[torch.Tensor], sent: List[torch.Tensor],
-                     shared: _Shared) -> DistBindings:
+                     ovfs: List[torch.Tensor], sent: List[torch.Tensor]
+                     ) -> DistBindings:
         """The shard-local scan/join pipeline of one BGP segment; records
         each step's overflow at its flat index (see PlanExecutor)."""
-        no = _false(self.device)
+        dev = self.device
         if not seg.plan.steps:
             # empty BGP: the unit relation (one empty solution mapping)
             # lives on rank 0 — anywhere else it would be counted S times
-            n = _scalar(1 if self.rank == 0 else 0, self.device)
-            return DistBindings((), torch.zeros((8, 0), dtype=_I32,
-                                                device=self.device),
-                                n, no, None)
+            return DistBindings((), torch.zeros((1, 8, 0), dtype=_I32,
+                                                device=dev),
+                                _scalar(int(self.rank == 0), dev, 1),
+                                _false(dev, 1), None)
         acc: Optional[DistBindings] = None
         for k, step in enumerate(seg.plan.steps):
             i = seg.start + k
-            cur = shared[i] if i in shared else \
-                self._scan_step(i, step, inp, bounds)
+            cur = self._scan_step(i, step, inp, bounds)
             if acc is None:
                 acc = cur
                 ovfs[i] = cur.overflow
@@ -478,86 +513,95 @@ class DistributedExecutor:
             joined = self._dist_join(acc, cur, caps[i], sent)
             ovfs[i] = joined.overflow | cur.overflow
             acc = joined
-        return DistBindings(acc.cols, acc.data, acc.n, no, acc.part_key)
+        return DistBindings(acc.cols, acc.data, acc.n,
+                            _false(dev, acc.batch), acc.part_key)
 
     def _eval_seg(self, seg: CoreSeg, caps, inp: _DistInputs, bounds,
                   fconsts, ctr: List[int], ovfs: List[torch.Tensor],
-                  sent: List[torch.Tensor], shared: _Shared) -> DistBindings:
+                  sent: List[torch.Tensor]) -> DistBindings:
         """Evaluate the core segment tree to one shard-local relation;
         mirrors :meth:`repro_torch.core.jexec.PlanExecutor._eval_seg`
         with the combines going through the distributed (co-partition /
         gather) join family.  Each combine writes its own overflow flag
         at its capacity index, so returned relations carry clean flags."""
-        no = _false(self.device)
+        dev = self.device
         values = inp.values
         if isinstance(seg, EmptySeg):
             k = len(seg.vars)
             return DistBindings(tuple(seg.vars),
-                                torch.full((8, k), PAD, dtype=_I32,
-                                           device=self.device),
-                                _scalar(0, self.device), no, None)
+                                torch.full((1, 8, k), PAD, dtype=_I32,
+                                           device=dev),
+                                _scalar(0, dev, 1), _false(dev, 1), None)
         if isinstance(seg, BGPSeg):
-            return self._compose_bgp(seg, caps, inp, bounds, ovfs, sent,
-                                     shared)
+            return self._compose_bgp(seg, caps, inp, bounds, ovfs, sent)
         if isinstance(seg, FilterSeg):
             d = self._eval_seg(seg.child, caps, inp, bounds, fconsts, ctr,
-                               ovfs, sent, shared)
-            jb = _first(device_filter(_one(d.cols, d.data, d.n),
-                                      seg.expr, values, fconsts, ctr))
-            return DistBindings(jb.cols, jb.data, jb.n, no, d.part_key)
+                               ovfs, sent)
+            jb = device_filter(
+                d.rel(self._filter_batch(seg.expr, bounds.shape[0])),
+                seg.expr, values, fconsts, ctr)
+            return DistBindings(jb.cols, jb.data, jb.n,
+                                _false(dev, jb.batch), d.part_key)
         left = self._eval_seg(seg.left, caps, inp, bounds, fconsts, ctr,
-                              ovfs, sent, shared)
+                              ovfs, sent)
         right = self._eval_seg(seg.right, caps, inp, bounds, fconsts, ctr,
-                               ovfs, sent, shared)
+                               ovfs, sent)
         ci = self._comb_index[id(seg)]
         if seg.kind == "join":
             out = self._dist_join(left, right, caps[ci], sent)
         elif seg.kind == "left":
-            out = self._dist_left_join(left, right, caps[ci], seg.expr,
-                                       values, fconsts, ctr, sent)
+            out = self._dist_left_join(
+                left, right, caps[ci], seg.expr, values, fconsts, ctr, sent,
+                self._filter_batch(seg.expr, bounds.shape[0]))
         else:
             out = self._dist_union(left, right, caps[ci])
         ovfs[ci] = out.overflow
-        return DistBindings(out.cols, out.data, out.n, no, out.part_key)
+        return DistBindings(out.cols, out.data, out.n,
+                            _false(dev, out.batch), out.part_key)
 
-    def _shard_program(self, caps, inp: _DistInputs, bounds, fconsts,
-                       shared: _Shared):
-        """One binding on this rank: ``(data, n, overflow flags per
-        capacity slot (this rank's), rows sent)``.  Like
-        :meth:`repro_torch.core.jexec.PlanExecutor._program`, overflow is
-        reported per capacity slot so the host retry doubles only the
-        overflowing capacities.  ``fconsts`` is the binding's ``(n_fc,)``
-        vector; the operators read it as a batch of one."""
-        no = _false(self.device)
-        fconsts = fconsts.reshape(1, -1)
+    def _shard_program(self, caps, inp: _DistInputs, bounds, fconsts):
+        """B bindings on this rank, from their ``(B, n_steps, 2)`` bounds
+        and ``(B, n_fc)`` filter constants: ``(data (B, cap, k), n (B,),
+        overflow flags (B, capacity slots) (this rank's), rows sent
+        (B,))``.  Like :meth:`repro_torch.core.jexec.PlanExecutor
+        ._program`, overflow is reported per capacity slot so the host
+        retry doubles only the overflowing capacities; a shared
+        relation's flag is every binding's."""
+        batch = bounds.shape[0]
+        dev = self.device
         ctr = [0]
-        ovfs: List[torch.Tensor] = [no] * self._n_pipeline
+        ovfs: List[torch.Tensor] = [_false(dev, 1)] * self._n_pipeline
         sent: List[torch.Tensor] = []
         acc = self._eval_seg(self.core.root, caps, inp, bounds, fconsts, ctr,
-                             ovfs, sent, shared)
-        total_sent = torch.stack(sent).sum() if sent else \
-            torch.zeros((), dtype=_I64, device=self.device)
+                             ovfs, sent)
+        # a shared relation's shuffle sent its rows once: binding 0 has it
+        first = torch.arange(batch, device=dev) == 0
+        total_sent = torch.zeros(batch, dtype=_I64, device=dev)
+        for s in sent:
+            total_sent = total_sent + (s if s.shape[0] == batch
+                                       else torch.where(first, s, 0))
 
         # shard-local modifiers: FILTER masks (+ projection when no
         # global modifier needs the un-projected sort keys)
-        jb = _one(acc.cols, acc.data, acc.n)
+        jb = acc.rel()
         for expr in self.spine.filters:
-            jb = device_filter(jb, expr, inp.values, fconsts, ctr)
+            jb = device_filter(
+                _broadcast(jb, max(jb.batch,
+                                   self._filter_batch(expr, batch))),
+                expr, inp.values, fconsts, ctr)
         if not self.gathered:
-            jb = _first(device_project(jb, self._out_vars))
-            return jb.data, jb.n, self._flags(ovfs), total_sent
+            jb = _broadcast(device_project(jb, self._out_vars), batch)
+            return jb.data, jb.n, self._flags(ovfs, batch), total_sent
         if self._mod_resize:
             jb, mod_ovf = device_resize(jb, caps[self._n_pipeline])
-            ovfs = ovfs + [mod_ovf[0]]
-        jb = _first(jb)
+            ovfs = ovfs + [mod_ovf]
 
         # global modifiers: gather the (capacity-bounded) shard results,
         # compact, then ORDER BY → project → DISTINCT → OFFSET/LIMIT
         # replicated (ordering before projection, as on the host paths) —
         # only the final n ≤ limit rows ever reach the host
-        gdata, keep, _ = self._gather_relation(jb.data, jb.n)
-        cdata, cn, _ = _compact1(gdata, keep, gdata.shape[0])
-        gb = _one(jb.cols, cdata, cn)
+        gb = self._allgather_relation(
+            DistBindings(jb.cols, jb.data, jb.n, jb.overflow, None)).rel()
         if self.spine.order:
             gb = device_order(gb, self.spine.order, inp.values)
         gb = device_project(gb, self._out_vars)
@@ -565,95 +609,96 @@ class DistributedExecutor:
             gb = device_distinct(gb)
         if self.spine.has_slice:
             gb = device_slice(gb, self.spine.offset, self.spine.limit)
-        gb = _first(gb)
-        return gb.data, gb.n, self._flags(ovfs), total_sent
+        gb = _broadcast(gb, batch)
+        return gb.data, gb.n, self._flags(ovfs, batch), total_sent
 
-    def _flags(self, ovfs: List[torch.Tensor]) -> torch.Tensor:
-        return torch.stack(ovfs) if ovfs else \
-            torch.zeros((0,), dtype=torch.bool, device=self.device)
+    def _flags(self, ovfs: List[torch.Tensor], batch: int) -> torch.Tensor:
+        """``(B, slots)``: each slot's flag, a shared one every row's."""
+        if not ovfs:
+            return _false(self.device, batch, 0)
+        return torch.stack([o.expand(batch) for o in ovfs], dim=1)
 
-    def _gather_relation(self, data: torch.Tensor, n: torch.Tensor):
-        """Every rank's (front-compacted) relation block in rank order:
-        ``(data[S·cap, k], keep[S·cap], n_total)``.  Validity is
-        positional — row i of a block is live iff ``i < n`` of its rank —
-        which also covers 0-column relations (fully-constant patterns)
-        that have no PAD slot to test."""
-        gdata = _all_gather_cat(data, self.group)
-        ns = _all_gather_cat(n.reshape(1), self.group)
-        cap = data.shape[0]
-        keep = (torch.arange(cap, dtype=_I32, device=data.device)[None, :]
-                < ns[:, None]).reshape(-1)
-        return gdata, keep, ns.sum(dtype=_I32)
-
-    def _allgather_relation(self, b: DistBindings
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Gather a shard-local relation to every rank, valid rows first
-        (the reference's ``_allgather_relation``)."""
-        gdata, keep, n_tot = self._gather_relation(b.data, b.n)
-        data, _, _ = _compact1(gdata, keep, gdata.shape[0])
-        return data, n_tot
+    def _allgather_relation(self, b: DistBindings) -> DistBindings:
+        """Gather a shard-local relation to every rank, each binding's
+        valid rows first, rank by rank (the reference's
+        ``_allgather_relation``): one ``all_gather`` of the ``(B, cap,
+        k)`` rows and one of the ``(B,)`` counts for the batch.  Validity
+        is positional — row i of a rank's block is live iff ``i < n`` of
+        that rank — which also covers 0-column relations
+        (fully-constant patterns) that have no PAD slot to test."""
+        size = self.n_shards
+        batch, cap, k = b.data.shape
+        gdata = _all_gather_cat(b.data, self.group) \
+            .view(size, batch, cap, k).transpose(0, 1) \
+            .reshape(batch, size * cap, k)
+        ns = _all_gather_cat(b.n, self.group).view(size, batch).t()
+        keep = (torch.arange(cap, dtype=_I32, device=b.data.device)
+                < ns[:, :, None]).reshape(batch, size * cap)
+        data, n, _ = _compact(gdata, keep, size * cap)
+        return DistBindings(b.cols, data, n,
+                            _false(self.device, batch), None)
 
     def _dist_join(self, a: DistBindings, b: DistBindings, out_cap: int,
                    sent: List[torch.Tensor]) -> DistBindings:
         """Join two shard-local relations; the returned ``overflow`` is
         this step's OWN flag (repartition bucket/compact + join output) —
         input flags are not propagated, the caller tracks them per step."""
+        batch = max(a.batch, b.batch)
         shared = [c for c in a.cols if c in b.cols]
         if not shared:
             # cross join: gather the (small) b side everywhere, then local
-            b_all, bn_all = self._allgather_relation(b)
-            jb = _first(device_join(_one(a.cols, a.data, a.n),
-                                    _one(b.cols, b_all, bn_all), out_cap))
+            jb = device_join(a.rel(batch), self._allgather_relation(b)
+                             .rel(batch), out_cap)
             return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
                                 a.part_key)
         key = shared[0]
-        da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
-        jb = _first(device_join(_one(a.cols, da, na), _one(b.cols, db, nb),
-                                out_cap))
+        a, b, ovf = self._co_partition(a, b, key, out_cap, sent)
+        jb = device_join(a.rel(batch), b.rel(batch), out_cap,
+                         b_presorted=_shared_build(b, key, batch))
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
 
     def _co_partition(self, a: DistBindings, b: DistBindings, key: str,
                       out_cap: int, sent: List[torch.Tensor]):
-        """Repartition each side not already partitioned by ``key``."""
-        ovf = _false(self.device)
-        da, na = a.data, a.n
-        db, nb = b.data, b.n
-        if a.part_key != key:
-            da, na, o1, s1 = repartition(da, na, a.cols.index(key),
-                                         self.group,
-                                         max(da.shape[0], out_cap))
-            ovf = ovf | o1
-            sent.append(s1)
-        if b.part_key != key:
-            db, nb, o2, s2 = repartition(db, nb, b.cols.index(key),
-                                         self.group,
-                                         max(db.shape[0], out_cap))
-            ovf = ovf | o2
-            sent.append(s2)
-        return da, na, db, nb, ovf
+        """Repartition each side not already partitioned by ``key`` (one
+        shuffle of its whole batch; a shared relation's once)."""
+        ovf = _false(self.device, 1)
+        out = []
+        for d in (a, b):
+            if d.part_key != key:
+                data, n, o, s = repartition(
+                    d.data, d.n, d.cols.index(key), self.group,
+                    max(d.data.shape[1], out_cap))
+                d = DistBindings(d.cols, data, n, d.overflow, key)
+                ovf = ovf | o
+                sent.append(s)
+            out.append(d)
+        return out[0], out[1], ovf
 
     def _dist_left_join(self, a: DistBindings, b: DistBindings,
                         out_cap: int, expr, values, fconsts, ctr,
-                        sent: List[torch.Tensor]) -> DistBindings:
+                        sent: List[torch.Tensor],
+                        expr_batch: int) -> DistBindings:
         """OPTIONAL over shard-local relations.  With a shared variable
         both sides are co-partitioned on it first, so each probe row
         meets ALL its matches locally and the unmatched (UNBOUND-padded)
         tail is computed shard-locally too; without one the (small) b
         side is gathered everywhere — either way the per-shard row sets
-        partition the global left-outer-join result exactly."""
+        partition the global left-outer-join result exactly.  A
+        condition that reads a constant slot makes the result every
+        binding's (``expr_batch``)."""
+        batch = max(a.batch, b.batch, expr_batch)
         shared = [c for c in a.cols if c in b.cols]
         if not shared:
-            b_all, bn_all = self._allgather_relation(b)
-            jb = _first(device_left_join(
-                _one(a.cols, a.data, a.n), _one(b.cols, b_all, bn_all),
-                out_cap, expr, values, fconsts, ctr))
+            jb = device_left_join(
+                a.rel(batch), self._allgather_relation(b).rel(batch),
+                out_cap, expr, values, fconsts, ctr)
             return DistBindings(jb.cols, jb.data, jb.n, jb.overflow,
                                 a.part_key)
         key = shared[0]
-        da, na, db, nb, ovf = self._co_partition(a, b, key, out_cap, sent)
-        jb = _first(device_left_join(_one(a.cols, da, na),
-                                     _one(b.cols, db, nb),
-                                     out_cap, expr, values, fconsts, ctr))
+        a, b, ovf = self._co_partition(a, b, key, out_cap, sent)
+        jb = device_left_join(a.rel(batch), b.rel(batch), out_cap, expr,
+                              values, fconsts, ctr,
+                              b_presorted=_shared_build(b, key, batch))
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow | ovf, key)
 
     def _dist_union(self, a: DistBindings, b: DistBindings,
@@ -662,26 +707,11 @@ class DistributedExecutor:
         its slices of both operands.  The partition key survives only
         when both sides are partitioned by the SAME variable (rows keep
         satisfying key % S == rank)."""
-        jb = _first(device_union(_one(a.cols, a.data, a.n),
-                                 _one(b.cols, b.data, b.n), out_cap))
+        batch = max(a.batch, b.batch)
+        jb = device_union(a.rel(batch), b.rel(batch), out_cap)
         pk = a.part_key if (a.part_key is not None
                             and a.part_key == b.part_key) else None
         return DistBindings(jb.cols, jb.data, jb.n, jb.overflow, pk)
-
-    def _hoist(self, inp: _DistInputs) -> _Shared:
-        """The shared phase of a batched launch: every scan whose pattern
-        binds no constant gives each binding the same relation, so it
-        runs once per launch (constants only enter scan selections)."""
-        unused = self._to_device(self._default_bounds)
-        shared: _Shared = {}
-        for i, step in enumerate(self.plan.steps):
-            if step.uses_tt:
-                s_b, _, o_b, _, _, _ = _tt_meta(step.tp)
-            else:
-                s_b, o_b = _step_meta(step)[:2]
-            if s_b is None and o_b is None:
-                shared[i] = self._scan_step(i, step, inp, unused)
-        return shared
 
     # -- public API --------------------------------------------------------------
     def fconsts_from_mapping(self, mapping=None) -> np.ndarray:
@@ -694,19 +724,19 @@ class DistributedExecutor:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _sync(self, outs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def _sync(self, n: torch.Tensor, ovf: torch.Tensor, sent: torch.Tensor
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The one host sync of a launch: every binding's overflow flags,
         and every rank's row count and rows sent, in one
-        ``all_reduce(MAX)`` (a rank writes its own counts into its own
-        column, zeros elsewhere) and one copy to the host.  Returns
-        ``(flags (B, slots), n (B, S), sent (B, S))``, equal on every
-        rank."""
+        ``all_reduce(MAX)`` of a ``(B, slots + 2S)`` head (a rank writes
+        its own counts into its own column, zeros elsewhere) and one copy
+        to the host.  Returns ``(flags (B, slots), n (B, S), sent (B,
+        S))``, equal on every rank."""
         size = self.n_shards
         mine = torch.arange(size, device=self.device) == self.rank
-        head = torch.stack([
-            torch.cat([ovf.to(_I64), torch.where(mine, n.to(_I64), 0),
-                       torch.where(mine, s, 0)])
-            for _, n, ovf, s in outs])
+        head = torch.cat([ovf.to(_I64),
+                          torch.where(mine, n.to(_I64)[:, None], 0),
+                          torch.where(mine, sent[:, None], 0)], dim=1)
         dist.all_reduce(head, op=dist.ReduceOp.MAX, group=self.group)
         head = head.cpu().numpy()
         slots = head.shape[1] - 2 * size
@@ -714,69 +744,67 @@ class DistributedExecutor:
         return head[:, :slots], head[:, slots:slots + size], \
             head[:, slots + size:]
 
-    def _collect(self, data: torch.Tensor, ns: np.ndarray) -> np.ndarray:
-        """The result rows on every rank: a gathered (replicated) result
-        as it is; otherwise every rank's rows concatenated in rank order,
-        each rank's block padded to the largest count for the gather and
-        cut back to its own count."""
+    def _collect(self, data: torch.Tensor, ns: np.ndarray
+                 ) -> List[np.ndarray]:
+        """Every binding's result rows on every rank, from ``data`` (B,
+        cap, k) and the synced counts ``ns`` (B, S): a gathered
+        (replicated) result cut to its count; otherwise one
+        ``all_gather`` of every binding's block, each padded to the
+        largest count over the batch and the ranks, and each binding's
+        rows concatenated in rank order."""
+        batch, _, k = data.shape
         if self.gathered:
-            return data[:int(ns[0])].cpu().numpy()
-        k = data.shape[1]
-        top = int(ns.max())
-        if k == 0 or top == 0:
-            return np.zeros((int(ns.sum()), k), dtype=np.int32)
-        parts = [torch.empty((top, k), dtype=data.dtype, device=data.device)
-                 for _ in range(self.n_shards)]
-        dist.all_gather(parts, data[:top].contiguous(), group=self.group)
-        return torch.cat([p[:int(c)] for p, c in zip(parts, ns)]) \
-            .cpu().numpy()
+            counts = ns[:, :1]
+        else:
+            counts = ns
+            top = int(ns.max())
+            if k and top:
+                parts = [torch.empty((batch, top, k), dtype=data.dtype,
+                                     device=data.device)
+                         for _ in range(self.n_shards)]
+                dist.all_gather(parts, data[:, :top].contiguous(),
+                                group=self.group)
+                data = torch.stack(parts, dim=1).view(batch, -1, k)
+        if not k or not counts.max(initial=0):
+            return [np.zeros((int(c.sum()), k), dtype=np.int32)
+                    for c in counts]
+        # each binding's live rows, rank by rank, in one copy to the host
+        cap = data.shape[1] // counts.shape[1]
+        live = torch.arange(cap, device=data.device) < torch.from_numpy(
+            counts).to(data.device)[:, :, None]
+        rows = data[live.view(batch, -1)].cpu().numpy()
+        return np.split(rows, np.cumsum(counts.sum(1))[:-1])
 
     def run(self, max_retries: int = 16,
             bounds: Optional[np.ndarray] = None,
             fconsts: Optional[np.ndarray] = None,
             trace=None) -> Tuple[np.ndarray, Tuple[str, ...]]:
-        """Execute one binding on every rank; returns the result rows
-        (host numpy, the same on every rank) and their columns.  A
-        sampled request's ``trace`` gets one ``device.launch`` span per
-        attempt, ended after the all-reduce's host read (see
-        :meth:`repro_torch.core.jexec.PlanExecutor.run`)."""
-        inp = self._device_inputs
+        """Execute one binding on every rank: the program at a batch of
+        one.  Returns the result rows (host numpy, the same on every
+        rank) and their columns.  A sampled request's ``trace`` gets one
+        ``device.launch`` span per attempt, ended after the all-reduce's
+        host read (see :meth:`repro_torch.core.jexec.PlanExecutor.run`)."""
         b = self._default_bounds if bounds is None else \
             np.asarray(bounds, dtype=np.int32).reshape(self._default_bounds.shape)
         fc = self.fconsts_from_mapping(None) if fconsts is None else \
             np.asarray(fconsts, dtype=np.int32).reshape(len(self.filter_slots))
-        bj, fj = self._to_device(b), self._to_device(fc)
-        caps = tuple(self.caps)
-        for attempt in range(max_retries):
-            sid = trace.start("device.launch", backend="distributed",
-                              attempt=attempt, batch=1,
-                              shards=self.n_shards,
-                              cap_slots=sum(caps)) \
-                if trace is not None else None
-            out = self._shard_program(caps, inp, bj, fj, {})
-            ovf, ns, _ = self._sync([out])
-            if trace is not None:
-                trace.end(sid, overflow=bool(ovf.any()))
-            if not ovf.any():
-                self.caps = list(caps)   # keep grown caps across requests
-                return self._collect(out[0], ns[0]), self._final_cols()
-            del out
-            caps = double_caps(caps, ovf[0].astype(bool), self._n_pipeline)
-        raise RuntimeError("distributed join capacity overflow after retries")
+        return self._launch(b[None], fc[None], max_retries, trace, "")[0]
 
     def run_batch(self, bounds_batch: Sequence[np.ndarray],
                   fconsts_batch: Optional[Sequence[np.ndarray]] = None,
                   max_retries: int = 16, trace=None
                   ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
-        """Execute B constant-bindings of the plan in one launch: the
-        bounds-independent scans run once (:meth:`_hoist`), then every
-        rank runs the bindings in one order, and one sync reads all
-        their flags; see :meth:`repro_torch.core.jexec.PlanExecutor
-        .run_batch` for the retry contract (any element overflowing
-        retries the whole batch)."""
+        """Execute B constant-bindings of the plan as one launch sequence
+        on every rank — the reference's vmapped ``shard_map`` program:
+        every operator sees the whole batch, every shuffle is one
+        bucket-count launch and one ``all_to_all_single``, a bounds-free
+        relation is shuffled once, and the gathers are one collective
+        each.  Overflow on *any* binding retries the whole batch with
+        doubled caps (``ovf.any(axis=0)``: the batch shares one cap
+        vector); see :meth:`repro_torch.core.jexec.PlanExecutor
+        .run_batch`."""
         if not bounds_batch:
             return []
-        inp = self._device_inputs
         shape = self._default_bounds.shape
         bb = np.stack([np.asarray(b, dtype=np.int32).reshape(shape)
                        for b in bounds_batch])
@@ -786,6 +814,15 @@ class DistributedExecutor:
         else:
             fb = np.stack([np.asarray(f, dtype=np.int32).reshape(n_fc)
                            for f in fconsts_batch])
+        return self._launch(bb, fb, max_retries, trace, " (batched)")
+
+    def _launch(self, bb: np.ndarray, fb: np.ndarray, max_retries: int,
+                trace, what: str
+                ) -> List[Tuple[np.ndarray, Tuple[str, ...]]]:
+        """The program over the bindings' bounds and filter constants,
+        once per attempt, retried with doubled caps while any binding
+        overflows, then every binding's rows gathered."""
+        inp = self._device_inputs
         bj, fj = self._to_device(bb), self._to_device(fb)
         caps = tuple(self.caps)
         for attempt in range(max_retries):
@@ -794,22 +831,19 @@ class DistributedExecutor:
                               shards=self.n_shards,
                               cap_slots=sum(caps)) \
                 if trace is not None else None
-            shared = self._hoist(inp)
-            outs = [self._shard_program(caps, inp, bj[i], fj[i], shared)
-                    for i in range(len(bb))]
-            ovf, ns, _ = self._sync(outs)
-            ovf_any = ovf.any(axis=0)
+            data, n, ovf, sent = self._shard_program(caps, inp, bj, fj)
+            flags, ns, _ = self._sync(n, ovf, sent)
+            ovf_any = flags.any(axis=0)
             if trace is not None:
                 trace.end(sid, overflow=bool(ovf_any.any()))
             if not ovf_any.any():
-                self.caps = list(caps)
+                self.caps = list(caps)   # keep grown caps across requests
                 cols = self._final_cols()
-                return [(self._collect(o[0], ns[i]), cols)
-                        for i, o in enumerate(outs)]
-            del outs, shared
+                return [(rows, cols) for rows in self._collect(data, ns)]
+            del data
             caps = double_caps(caps, ovf_any.astype(bool), self._n_pipeline)
-        raise RuntimeError(
-            "distributed join capacity overflow after retries (batched)")
+        raise RuntimeError("distributed join capacity overflow after "
+                           "retries" + what)
 
     def _final_cols(self) -> Tuple[str, ...]:
         return self._out_vars

@@ -238,6 +238,23 @@ def _broadcast(b: JBindings, batch: int) -> JBindings:
                      b.n.expand(batch), b.overflow.expand(batch))
 
 
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum along each row of a ``(B, N)`` tensor.
+    A batch is one scan over the flattened rows less each row's base, not
+    a scan along the last dimension: on the card torch scans a last
+    dimension with one block for up to 32 rows, so a few long rows would
+    leave the device idle, while the flat scan runs device-wide.  The
+    flat sums are int64 unless ``x`` is a mask whose sum fits int32."""
+    batch, n = x.shape
+    if batch == 1 or n == 0:
+        return torch.cumsum(x, 1, dtype=_I32)
+    wide = x.dtype != torch.bool or batch * n > 2**31 - 1
+    flat = torch.cumsum(x.reshape(-1), 0,
+                        dtype=torch.int64 if wide else _I32).view(batch, n)
+    flat -= torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
+    return flat.to(_I32)
+
+
 def _compact(data: torch.Tensor, keep: torch.Tensor, out_cap: int,
              fill: int = PAD
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -256,7 +273,7 @@ def _compact(data: torch.Tensor, keep: torch.Tensor, out_cap: int,
     k = data.shape[-1]
     dev = keep.device
     n_keep = keep.sum(1, dtype=_I32)
-    pos = torch.cumsum(keep, 1, dtype=_I32) - 1
+    pos = _cumsum_rows(keep) - 1
     dest = torch.where(keep & (pos < out_cap), pos, out_cap)
     if batch > 1:
         # flat slots: int64 once the batch's buffer passes int32
@@ -399,7 +416,7 @@ def _join_expand(a: JBindings, b: JBindings, out_cap: int,
     else:
         order_b, kb_sorted = b_presorted
     lo, cnt = ops.join_probe(ka.contiguous(), kb_sorted.contiguous())
-    ends = torch.cumsum(cnt, 1, dtype=_I32)      # inclusive prefix
+    ends = _cumsum_rows(cnt)                     # inclusive prefix
     prefix = ends - cnt                          # exclusive prefix
     total = ends[:, -1]
 
@@ -457,7 +474,9 @@ def device_left_join(a: JBindings, b: JBindings, out_cap: int,
                      expr: Optional[FilterExpr] = None,
                      values: Optional[torch.Tensor] = None,
                      fconsts: Optional[torch.Tensor] = None,
-                     ctr: Optional[List[int]] = None) -> JBindings:
+                     ctr: Optional[List[int]] = None,
+                     b_presorted: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     = None) -> JBindings:
     """OPTIONAL: left-outer join.  In each binding, inner rows first
     (probe-major, build rows in original order — the natural-join
     order), then each unmatched probe row once, UNBOUND-padded on the
@@ -466,8 +485,11 @@ def device_left_join(a: JBindings, b: JBindings, out_cap: int,
 
     ``expr`` is OPTIONAL's join condition: it filters the INNER rows
     only (a probe row whose matches all fail the condition comes out
-    unmatched), with constants riding the shared runtime ``fconsts``."""
-    out_cols, data, a_idx, valid, total, _ = _join_expand(a, b, out_cap)
+    unmatched), with constants riding the shared runtime ``fconsts``.
+    ``b_presorted`` is :func:`device_join`'s: a build every binding
+    shares, sorted once."""
+    out_cols, data, a_idx, valid, total, _ = _join_expand(a, b, out_cap,
+                                                          b_presorted)
     batch, cap_a = a.batch, a.capacity
     dev = data.device
     if expr is not None:

@@ -275,7 +275,7 @@ class _VectorizedPrepared(PreparedQuery):
             # pad back to the caller's (bucket-shaped) batch size: a
             # missing binding takes no slot of its own, and a batch that
             # is one launch sequence keeps the shape the engine chose
-            while self.vectorized_batch and len(bounds) < len(bindings):
+            while len(bounds) < len(bindings):
                 bounds.append(bounds[-1])
                 fconsts.append(fconsts[-1])
             outs = self.executor.run_batch(bounds, fconsts, trace=trace)
@@ -333,11 +333,12 @@ class _DistributedPrepared(_VectorizedPrepared):
     """The distributed executor over a process group; table shards and
     the per-rank program are template-level state, constants are runtime
     inputs.  Every rank of the group must run the same bindings in the
-    same order.  Its ``run_batch`` runs the bindings in turn (after one
-    hoisted phase), so the Engine neither pads nor observes it."""
+    same order.  Its ``run_batch`` runs the whole batch as one launch
+    sequence on every rank (the reference's vmapped ``shard_map``
+    program), so the Engine pads it to its bucket shape and the tuner
+    observes it, as on the torch backend."""
 
     backend = "distributed"
-    vectorized_batch = False
 
 
 class DistributedBackend(TorchBackend):

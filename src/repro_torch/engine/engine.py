@@ -99,8 +99,8 @@ class ServerMetrics:
     batches: int = 0          # batched launches executed
     batched_requests: int = 0 # requests served through a batched launch
     # slots wasted padding up to a static shape (only a batch that is one
-    # launch sequence is padded: the torch backend's, not the eager or
-    # distributed seats')
+    # launch sequence is padded: the torch and distributed backends', not
+    # the eager seat's)
     padding_slots: int = 0
     # adaptive runtime: requests per backend actually executed on (on a
     # static engine this is all one key; under "auto" it shows the mix)
@@ -567,10 +567,10 @@ class Engine:
         """Execute same-template bindings through ``run_batch``, chunked
         at the largest active static shape and padded up to the bucket
         shape (the pad repeats a real binding; padded results are
-        dropped).  Backends whose ``run_batch`` runs its bindings in turn
-        (the eager and distributed seats) are not padded — padding only
-        buys something when the batch is one launch sequence — and the
-        tuner observes only the padded ones.
+        dropped).  A backend whose ``run_batch`` runs its bindings in turn
+        (the eager seat) is not padded — padding only buys something when
+        the batch is one launch sequence — and the tuner observes only the
+        padded ones (the torch and distributed seats).
 
         ``traces`` (parallel to ``bindings``) carries the sampled
         requests' trace contexts.  A chunk shares ONE launch sequence, so

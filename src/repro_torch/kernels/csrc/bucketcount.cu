@@ -55,6 +55,16 @@
 //
 // The entry point zeroes the output in stream order (cudaMemsetAsync)
 // before the launch, so the caller allocates it without a fill.
+//
+// A batch: B rows of n keys each (a (B, n) key matrix and its (B, n)
+// validity bytes) give a (B, n_buckets) histogram in one launch, as the
+// distributed executor shuffles a batch of bindings: blockIdx.y is the
+// row, each block offsets the keys, the validity and the output by its
+// row's stride, and the x-grid is the one-row grid above, with all rows'
+// blocks together capped by what the SMs hold.  Every path counts per
+// row.  Every row shares the body [lo, hi) only when each row starts at
+// the same alignment, that is when n is a multiple of 16 keys; otherwise
+// the caller passes lo = hi = 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,6 +177,9 @@ __global__ void bucket_count_registers(const int32_t* __restrict__ keys,
                                        int64_t n, int64_t lo, int64_t hi,
                                        unsigned int* __restrict__ out) {
     __shared__ unsigned hist[NB];
+    keys += (int64_t)blockIdx.y * n;
+    valid += (int64_t)blockIdx.y * n;
+    out += (int64_t)blockIdx.y * NB;
     if (threadIdx.x < NB) hist[threadIdx.x] = 0;
     RegisterCounts<NB> counts;
 #pragma unroll
@@ -189,6 +202,9 @@ __global__ void bucket_count_shared(const int32_t* __restrict__ keys,
                                     uint32_t n_buckets,
                                     unsigned int* __restrict__ out) {
     extern __shared__ unsigned hist[];
+    keys += (int64_t)blockIdx.y * n;
+    valid += (int64_t)blockIdx.y * n;
+    out += (int64_t)blockIdx.y * n_buckets;
     for (uint32_t b = threadIdx.x; b < n_buckets; b += blockDim.x) hist[b] = 0;
     __syncthreads();
     SharedCounts counts{hist, n_buckets, (int)(threadIdx.x & 31)};
@@ -205,6 +221,9 @@ __global__ void bucket_count_global(const int32_t* __restrict__ keys,
                                     int64_t n, int64_t lo, int64_t hi,
                                     uint32_t n_buckets,
                                     unsigned int* __restrict__ out) {
+    keys += (int64_t)blockIdx.y * n;
+    valid += (int64_t)blockIdx.y * n;
+    out += (int64_t)blockIdx.y * n_buckets;
     GlobalCounts counts{out, n_buckets};
     walk_keys(keys, valid, n, lo, hi, counts);
 }
@@ -212,60 +231,87 @@ __global__ void bucket_count_global(const int32_t* __restrict__ keys,
 template <int NB>
 static void launch_registers(const int32_t* keys, const uint8_t* valid,
                              int64_t n, int64_t lo, int64_t hi,
-                             unsigned n_blocks, int threads,
-                             unsigned int* out, cudaStream_t s) {
-    bucket_count_registers<NB><<<n_blocks, threads, 0, s>>>(keys, valid, n,
-                                                            lo, hi, out);
+                             dim3 grid, int threads, unsigned int* out,
+                             cudaStream_t s) {
+    bucket_count_registers<NB><<<grid, threads, 0, s>>>(keys, valid, n, lo,
+                                                        hi, out);
 }
 
-// Plain C entry point, loaded with ctypes.  ``keys`` int32 (n,), ``valid``
-// one byte per key (a torch.bool tensor), ``out`` int32 (n_buckets,) on
-// the device; ``path`` one of PATH_*, [lo, hi) the 16-byte body (both
-// pointers 16-byte aligned at lo, hi - lo a multiple of 16).  Zeroes
-// ``out`` and launches ``n_blocks`` blocks of ``threads`` threads (a
-// multiple of 32) on the caller's stream, allocates nothing, does not
-// synchronise, and returns the launch status (cudaGetLastError) so the
-// caller can raise.
-extern "C" int bucket_count_launch(const int32_t* keys, const uint8_t* valid,
-                                   int64_t n, int64_t n_buckets, int path,
-                                   int64_t lo, int64_t hi, int64_t n_blocks,
-                                   int threads, int32_t* out, void* stream) {
-    if (n < 0 || n_buckets <= 0 || n_buckets > 0xffffffffLL || lo < 0 ||
-        lo > hi || hi > n || (hi - lo) % STEP_KEYS || n_blocks <= 0 ||
-        n_blocks > 0x7fffffffLL || threads <= 0 || threads > 1024 ||
-        threads % 32)
+// Zeroes ``out`` (batch x n_buckets counts) and launches the path's
+// kernel over ``batch`` rows of ``n`` keys on stream ``s``.
+static int launch(const int32_t* keys, const uint8_t* valid, int64_t n,
+                  int64_t batch, int64_t n_buckets, int path, int64_t lo,
+                  int64_t hi, int64_t n_blocks, int threads, int32_t* out,
+                  void* stream) {
+    if (n < 0 || batch <= 0 || batch > 65535 || n_buckets <= 0 ||
+        n_buckets > 0xffffffffLL || lo < 0 || lo > hi || hi > n ||
+        (hi - lo) % STEP_KEYS || n_blocks <= 0 || n_blocks > 0x7fffffffLL ||
+        threads <= 0 || threads > 1024 || threads % 32)
         return (int)cudaErrorInvalidConfiguration;
     if ((path == PATH_REGISTERS && n_buckets > REG_BUCKETS) ||
         (path == PATH_SHARED && n_buckets > SMEM_BUCKETS) ||
         path < PATH_REGISTERS || path > PATH_GLOBAL)
         return (int)cudaErrorInvalidValue;
-    if (hi > lo && (((uintptr_t)(keys + lo) | (uintptr_t)(valid + lo)) & 15))
+    // every row's body starts 16-byte aligned: the first row's, and a row
+    // stride of a whole number of 16-key steps
+    if (hi > lo && ((((uintptr_t)(keys + lo) | (uintptr_t)(valid + lo)) & 15) ||
+                    (batch > 1 && n % STEP_KEYS)))
         return (int)cudaErrorMisalignedAddress;
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_buckets * 4, s);
+    cudaError_t err =
+        cudaMemsetAsync(out, 0, (size_t)batch * (size_t)n_buckets * 4, s);
     if (err != cudaSuccess) return (int)err;
     if (n == 0) return (int)cudaSuccess;
     unsigned int* hist = (unsigned int*)out;
-    const unsigned blocks = (unsigned)n_blocks;
+    const dim3 grid((unsigned)n_blocks, (unsigned)batch);
     if (path == PATH_REGISTERS) {
         switch (n_buckets) {
-            case 1: launch_registers<1>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 2: launch_registers<2>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 3: launch_registers<3>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 4: launch_registers<4>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 5: launch_registers<5>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 6: launch_registers<6>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 7: launch_registers<7>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
-            case 8: launch_registers<8>(keys, valid, n, lo, hi, blocks, threads, hist, s); break;
+            case 1: launch_registers<1>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 2: launch_registers<2>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 3: launch_registers<3>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 4: launch_registers<4>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 5: launch_registers<5>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 6: launch_registers<6>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 7: launch_registers<7>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
+            case 8: launch_registers<8>(keys, valid, n, lo, hi, grid, threads, hist, s); break;
             default: return (int)cudaErrorInvalidValue;
         }
     } else if (path == PATH_SHARED) {
         const size_t smem = (size_t)n_buckets * sizeof(unsigned int);
-        bucket_count_shared<<<blocks, threads, smem, s>>>(
+        bucket_count_shared<<<grid, threads, smem, s>>>(
             keys, valid, n, lo, hi, (uint32_t)n_buckets, hist);
     } else {
-        bucket_count_global<<<blocks, threads, 0, s>>>(
+        bucket_count_global<<<grid, threads, 0, s>>>(
             keys, valid, n, lo, hi, (uint32_t)n_buckets, hist);
     }
     return (int)cudaGetLastError();
+}
+
+// Plain C entry points, loaded with ctypes.  ``keys`` int32, ``valid``
+// one byte per key (a torch.bool tensor), ``out`` int32 on the device;
+// ``path`` one of PATH_*, [lo, hi) the 16-byte body of a row (both
+// pointers 16-byte aligned at lo, hi - lo a multiple of 16).  Each zeroes
+// ``out`` and launches ``n_blocks`` blocks of ``threads`` threads (a
+// multiple of 32) a row on the caller's stream, allocates nothing, does
+// not synchronise, and returns the launch status (cudaGetLastError) so
+// the caller can raise.
+//
+// bucket_count_launch: one row, keys and valid (n,), out (n_buckets,).
+extern "C" int bucket_count_launch(const int32_t* keys, const uint8_t* valid,
+                                   int64_t n, int64_t n_buckets, int path,
+                                   int64_t lo, int64_t hi, int64_t n_blocks,
+                                   int threads, int32_t* out, void* stream) {
+    return launch(keys, valid, n, 1, n_buckets, path, lo, hi, n_blocks,
+                  threads, out, stream);
+}
+
+// bucket_count_batched_launch: ``batch`` rows, keys and valid (batch, n)
+// and out (batch, n_buckets), each contiguous; a body needs n a multiple
+// of 16 when batch > 1.
+extern "C" int bucket_count_batched_launch(
+    const int32_t* keys, const uint8_t* valid, int64_t n, int64_t batch,
+    int64_t n_buckets, int path, int64_t lo, int64_t hi, int64_t n_blocks,
+    int threads, int32_t* out, void* stream) {
+    return launch(keys, valid, n, batch, n_buckets, path, lo, hi, n_blocks,
+                  threads, out, stream);
 }

@@ -155,10 +155,14 @@ def _semijoin_fns():
 
 
 @functools.lru_cache(maxsize=None)
-def _bucket_count_fn():
-    fn = build.load("bucket_count").bucket_count_launch
+def _bucket_count_fn(name: str = "bucket_count_launch"):
+    """An entry point of ``bucketcount.cu``: ``bucket_count_launch`` (one
+    row) or ``bucket_count_batched_launch`` (B rows; one more argument,
+    the rows, after the row length)."""
+    fn = getattr(build.load("bucket_count"), name)
+    rows = [ctypes.c_int64] if name == "bucket_count_batched_launch" else []
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                   *rows, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -177,27 +181,33 @@ class BucketPlan(NamedTuple):
 
 
 def _bucket_plan(n: int, n_buckets: int, sms: int, key_ptr: int,
-                 valid_ptr: int) -> BucketPlan:
-    """The bucket-count kernel's launch for ``n`` keys at address
-    ``key_ptr`` (int32) and their validity bytes at ``valid_ptr``.
+                 valid_ptr: int, batch: int = 1) -> BucketPlan:
+    """The bucket-count kernel's launch for ``batch`` rows of ``n`` keys
+    at address ``key_ptr`` (int32) and their validity bytes at
+    ``valid_ptr``, both contiguous ``(batch, n)``.
 
     The path: registers up to ``BUCKET_REG_MAX`` buckets, the shared
     histogram up to ``BUCKET_SMEM_MAX``, global atomics above.  The body
     starts at the first key where both addresses are 16-byte aligned
     and holds every whole step of ``BUCKET_STEP_KEYS`` keys from there;
     where no key aligns both (their offsets differ mod 4 keys) or fewer
-    than a step remain, it is empty (``lo = hi = 0``).  ``blocks``: one
-    thread a step or a head or tail key, at most ``sms *
-    BUCKET_BLOCKS_PER_SM`` blocks (the persistent grid), at least one."""
+    than a step remain, it is empty (``lo = hi = 0``).  Every row of a
+    batch shares the body only when each row starts at the first row's
+    alignment (``n`` a multiple of ``BUCKET_STEP_KEYS``); otherwise it
+    is empty.  ``blocks`` is the x-grid of one row: one thread a step or
+    a head or tail key, all rows' blocks together at most ``sms *
+    BUCKET_BLOCKS_PER_SM`` (the persistent grid), at least one a row."""
     path = ("registers" if n_buckets <= BUCKET_REG_MAX else
             "shared" if n_buckets <= BUCKET_SMEM_MAX else "global")
     lo = -valid_ptr % 16
-    if (key_ptr + 4 * lo) % 16 or n - lo < BUCKET_STEP_KEYS:
+    if (key_ptr + 4 * lo) % 16 or n - lo < BUCKET_STEP_KEYS or \
+            (batch > 1 and n % BUCKET_STEP_KEYS):
         lo = hi = 0
     else:
         hi = lo + (n - lo) // BUCKET_STEP_KEYS * BUCKET_STEP_KEYS
     items = max((hi - lo) // BUCKET_STEP_KEYS, n - (hi - lo))
-    blocks = min(-(-items // BUCKET_THREADS), sms * BUCKET_BLOCKS_PER_SM)
+    blocks = min(-(-items // BUCKET_THREADS),
+                 sms * BUCKET_BLOCKS_PER_SM // batch)
     return BucketPlan(path, max(blocks, 1), lo, hi)
 
 
@@ -526,17 +536,24 @@ def _bucket_on_card(keys: torch.Tensor, valid: torch.Tensor,
     if keys.shape != valid.shape:
         raise ValueError(f"bucket_count: keys {tuple(keys.shape)} and valid "
                          f"{tuple(valid.shape)} differ in shape")
+    if keys.dim() not in (1, 2):
+        raise ValueError(f"bucket_count: keys {tuple(keys.shape)}: a row "
+                         "(n,) or a batch (B, n)")
     if keys.is_cuda and valid.is_cuda and \
             keys.get_device() == valid.get_device():
-        if keys.dtype != torch.int32 or keys.dim() != 1 or \
-                not keys.is_contiguous():
-            _check_int32_column("bucket_count", "keys", keys)
+        if keys.dtype != torch.int32 or not keys.is_contiguous():
+            raise ValueError(f"bucket_count: keys must be a contiguous "
+                             f"int32 tensor, got {keys.dtype} "
+                             f"{tuple(keys.shape)}")
         if valid.dtype != torch.bool or not valid.is_contiguous():
             raise ValueError(f"bucket_count: valid must be a contiguous "
                              f"bool tensor, got {valid.dtype}")
-        if keys.shape[0] >= 2**31:
-            raise ValueError(f"bucket_count: {keys.shape[0]} keys would "
+        if keys.shape[-1] >= 2**31:
+            raise ValueError(f"bucket_count: {keys.shape[-1]} keys would "
                              "overflow an int32 count")
+        if keys.dim() == 2 and keys.shape[0] > 65535:
+            raise ValueError(f"bucket_count: {keys.shape[0]} rows exceed "
+                             "the grid's 65,535")
         return True
     if keys.device.type == "cpu" and valid.device.type == "cpu":
         return False
@@ -550,37 +567,43 @@ def bucket_count(keys: torch.Tensor, valid: torch.Tensor,
     """int32 histogram of ``uint32(key) mod n_buckets`` over the rows that
     are valid and whose key is not the probe pad 2^31-1 (see
     :func:`repro_torch.kernels.ref.bucket_count_ref`).  ``keys`` int32
-    and ``valid`` bool, both 1-D of one length.
+    and ``valid`` bool of one shape: ``(n,)`` gives ``(n_buckets,)``, a
+    batch ``(B, n)`` gives ``(B, n_buckets)``, row b the histogram of
+    row b.
 
     On CUDA this is the hand-written kernel ``csrc/bucketcount.cu``,
     which replaces the TPU kernel
     ``repro/kernels/bucketcount.py::bucket_count_kernel``, on the path
-    and grid of :func:`_bucket_plan`.  The call allocates its output and
+    and grid of :func:`_bucket_plan`; a batch is one launch
+    (``bucket_count_batched_launch``).  The call allocates its output and
     nothing else, and makes no host sync: the kernel's entry point zeroes
     the output in stream order.
     """
     n_buckets = int(n_buckets)
     if not _bucket_on_card(keys, valid, n_buckets):
         return ref.bucket_count_ref(keys, valid, n_buckets)
-    out = keys.new_empty(n_buckets)
-    n = keys.shape[0]
-    if n == 0:
+    out = keys.new_empty(keys.shape[:-1] + (n_buckets,))
+    n = keys.shape[-1]
+    if keys.numel() == 0:
         return out.zero_()
     dev = keys.get_device()
     key_ptr, valid_ptr = keys.data_ptr(), valid.data_ptr()
+    rows = () if keys.dim() == 1 else (keys.shape[0],)
     path, blocks, lo, hi = _bucket_plan(n, n_buckets, _sm_count(dev),
-                                        key_ptr, valid_ptr)
+                                        key_ptr, valid_ptr, *rows)
     # the raw handle of the current stream and the current device, each
     # in one call into torch's C module, without the Python Stream object
     # that torch.cuda.current_stream builds
-    args = (key_ptr, valid_ptr, n, n_buckets, BUCKET_PATH_IDS[path], lo, hi,
-            blocks, BUCKET_THREADS, out.data_ptr(),
+    args = (key_ptr, valid_ptr, n, *rows, n_buckets, BUCKET_PATH_IDS[path],
+            lo, hi, blocks, BUCKET_THREADS, out.data_ptr(),
             torch._C._cuda_getCurrentRawStream(dev))
+    fn = _bucket_count_fn("bucket_count_batched_launch" if rows
+                          else "bucket_count_launch")
     if dev == torch._C._cuda_getDevice():
-        status = _bucket_count_fn()(*args)
+        status = fn(*args)
     else:
         with torch.cuda.device(dev):
-            status = _bucket_count_fn()(*args)
+            status = fn(*args)
     if status != 0:
         raise KernelLaunchError(f"bucket_count kernel launch failed: "
                                 f"CUDA error {status}")

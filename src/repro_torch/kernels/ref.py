@@ -117,9 +117,15 @@ def bucket_count_ref(keys: torch.Tensor, valid: torch.Tensor,
     is not the probe pad 2^31-1.  The modulo is taken on the key's 32
     bits read as unsigned, as the distributed shuffle routes rows, so a
     negative key (UNBOUND -1, A_NULL -3) lands where ``repartition``
-    sends it."""
+    sends it.  A batch: ``keys`` and ``valid`` ``(B, n)`` give ``(B,
+    n_buckets)``, row b the histogram of row b."""
     live = valid.to(torch.bool) & (keys != PROBE_PAD)
     dest = (keys.to(torch.int64) & 0xFFFFFFFF) % n_buckets
-    hist = torch.zeros(n_buckets, dtype=torch.int64, device=keys.device)
+    if keys.dim() == 2:
+        # row b's buckets are b * n_buckets + dest
+        dest = dest + torch.arange(keys.shape[0], dtype=torch.int64,
+                                   device=keys.device)[:, None] * n_buckets
+    hist = torch.zeros(keys.shape[:-1].numel() * n_buckets,
+                       dtype=torch.int64, device=keys.device)
     hist.index_add_(0, dest[live], torch.ones_like(dest[live]))
-    return hist.to(torch.int32)
+    return hist.to(torch.int32).reshape(keys.shape[:-1] + (n_buckets,))

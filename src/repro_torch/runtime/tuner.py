@@ -26,10 +26,10 @@ launch never reshapes the menu.  The smallest shape is never retired.
 All decisions are deterministic given the observation stream.  A copy
 of the reference package's module.
 
-Only a batch that is one launch sequence is observed: the torch
-backend's (``PreparedQuery.vectorized_batch``).  The eager and
-distributed seats run a batch's bindings in turn, so the engine neither
-pads nor observes their batches.
+Only a batch that is one launch sequence is observed: the torch and
+distributed backends' (``PreparedQuery.vectorized_batch``).  The eager
+seat runs a batch's bindings in turn, so the engine neither pads nor
+observes its batches.
 """
 
 from __future__ import annotations

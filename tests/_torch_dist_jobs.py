@@ -92,9 +92,9 @@ def _result(res):
 
 def job_suite(args):
     """The first instance of every WatDiv basic template through the
-    distributed engine (rows, columns, exchanges, executor slots), every
-    instance single and batched, and ``args["dual"]`` again with
-    ``dual_partition=True``."""
+    distributed engine (rows, columns, exchanges, executor slots), then
+    every instance as one batch (rows, executor slots after it) and
+    single, and ``args["dual"]`` again with ``dual_partition=True``."""
     from repro_torch import Dataset
     from repro_torch.core import distributed as D
     from repro_torch.rdf.workloads import basic_queries
@@ -110,8 +110,11 @@ def job_suite(args):
         prepared = eng.prepare(insts[0])
         if hasattr(prepared, "executor"):
             rec["info"] = executor_info(prepared.executor)
-        single = [eng.query(q) for q in insts]
         batched = eng.query_batch(insts)
+        rec["batch"] = [_result(r) for r in batched]
+        if hasattr(prepared, "executor"):
+            rec["batch_info"] = executor_info(prepared.executor)
+        single = [eng.query(q) for q in insts]
         rec["batch_equal"] = all(
             a.cols == b.cols and np.array_equal(a.data, b.data)
             for a, b in zip(single, batched))
@@ -162,13 +165,13 @@ def job_repartition(args):
     data = np.stack([keys, np.arange(cap, dtype=np.int32) + 1000 * rank],
                     axis=1)
     data[n:] = 2**31 - 1
-    t = torch.from_numpy(data)
+    t = torch.from_numpy(data)[None]
     D.reset_exchanges()
     rows, n_out, ovf, sent = D.repartition(
-        t, torch.tensor(n, dtype=torch.int32), 0, None, args["out_cap"])
-    return {"sent_rows": data[:n], "recv": rows.numpy(),
-            "n": int(n_out), "overflow": bool(ovf), "sent": int(sent),
-            "exchanges": D.exchanges["all_to_all"]}
+        t, torch.tensor([n], dtype=torch.int32), 0, None, args["out_cap"])
+    return {"sent_rows": data[:n], "recv": rows[0].numpy(),
+            "n": int(n_out[0]), "overflow": bool(ovf[0]),
+            "sent": int(sent[0]), "exchanges": D.exchanges["all_to_all"]}
 
 
 def job_build(args):
@@ -278,7 +281,8 @@ class _ScriptedClock:
 
 def job_auto_routing(args):
     """An ``"auto"`` engine over the group (eager, torch, distributed)
-    whose runs advance each rank's own fake clock by that rank's script:
+    whose runs advance each rank's own fake clock by that rank's script
+    (its ms for each request a run serves, pads not counted):
     alone, rank 0 would crown torch and rank 1 eager.  Returns the
     routing log (less the clock stamps), the router's report, and the
     answers held against the single-device engine as multisets."""
@@ -310,7 +314,14 @@ def job_auto_routing(args):
 
             def timed_batch(bindings, *a, **k):
                 out = run_batch(bindings, *a, **k)
-                clock.t += ms * len(bindings) / 1e3
+                # the script charges requests: the engine pads a batch
+                # that is one launch sequence by repeating its last
+                # binding, and a pad is no request
+                live = len(bindings)
+                while live > 1 and bindings[live - 1] is not None and \
+                        bindings[live - 1] is bindings[live - 2]:
+                    live -= 1
+                clock.t += ms * live / 1e3
                 return out
 
             prepared.run, prepared.run_batch = timed_run, timed_batch
@@ -338,10 +349,129 @@ def job_auto_routing(args):
             "equal": equal, "requests": len(results)}
 
 
+def job_repartition_batch(args):
+    """``repartition`` of a batch of seeded rows, each with its own valid
+    count (``args["ns"]``; a full row bound for rank 0 alone overflows
+    ``out_cap`` there), and of each row alone: both results, flags,
+    rows sent and exchanges."""
+    from repro_torch.core import distributed as D
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(200 + rank)
+    cap, ns = args["cap"], args["ns"]
+    keys = rng.integers(-2**31 + 8, 2**31 - 1, size=(len(ns), cap),
+                        dtype=np.int64)
+    keys[:, :4] = [-1, -3, 0, 2**31 - 2]
+    skew = args["skew_row"]
+    keys[skew] -= (keys[skew] & 0xFFFFFFFF) % world
+    data = np.stack([keys.astype(np.int32),
+                     np.arange(cap, dtype=np.int32)[None].repeat(len(ns), 0)
+                     + 1000 * rank], axis=2)
+    for b, n in enumerate(ns):
+        data[b, n:] = 2**31 - 1
+    n_t = torch.tensor(ns, dtype=torch.int32)
+    D.reset_exchanges()
+    rows, n_out, ovf, sent = D.repartition(torch.from_numpy(data), n_t, 0,
+                                           None, args["out_cap"])
+    out = {"batch": {"rows": rows.numpy(), "n": n_out.numpy(),
+                     "overflow": ovf.numpy(), "sent": sent.numpy()},
+           "exchanges": D.exchanges["all_to_all"], "single": []}
+    for b in range(len(ns)):
+        r, n, o, st = D.repartition(torch.from_numpy(data[b:b + 1]),
+                                    n_t[b:b + 1], 0, None, args["out_cap"])
+        out["single"].append({"rows": r[0].numpy(), "n": int(n[0]),
+                              "overflow": bool(o[0]), "sent": int(st[0])})
+    return out
+
+
+def job_launch_counts(args):
+    """Calls of ``ops.bucket_count``, ``ops.join_probe`` and
+    ``all_to_all_single`` (and attempts) made by one request and by a
+    batch of ``args["batch"]`` instances, per template, with the
+    executor's caps grown beforehand so that each is one attempt."""
+    from repro_torch import Dataset
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.rdf.workloads import basic_queries
+
+    calls = {"bucket_count": 0, "join_probe": 0, "all_to_all": 0,
+             "attempts": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    ops.bucket_count = counted("bucket_count", ops.bucket_count)
+    ops.join_probe = counted("join_probe", ops.join_probe)
+    dist.all_to_all_single = counted("all_to_all", dist.all_to_all_single)
+    D.DistributedExecutor._shard_program = counted(
+        "attempts", D.DistributedExecutor._shard_program)
+    ds = Dataset.watdiv(scale=args["scale"], seed=0, threshold=0.25,
+                        device="cpu")
+    eng = ds.engine("distributed")
+    qs = basic_queries(ds.schema, seed=5, n_instances=args["batch"])
+    out = {}
+    for name in args["templates"]:
+        insts = qs[name]
+        eng.query_batch(insts)          # grows the caps for both
+        eng.query(insts[0])
+        counts = []
+        for run in (lambda: eng.query(insts[0]),
+                    lambda: eng.query_batch(insts)):
+            before = dict(calls)
+            run()
+            counts.append({k: calls[k] - before[k] for k in calls})
+        out[name] = {"single": counts[0], "batch": counts[1]}
+    return out
+
+
+def job_padding(args):
+    """The engine's padding on the distributed seat: ``query_batch`` of
+    the first ``count`` instances of each ``(template, count)`` of
+    ``args["script"]``, the first query of ``args["missing"]``'s batch
+    given a constant the dictionary lacks (``args["pattern"]`` replaced
+    by ``args["absent"]``); returns the metrics summary's padding and
+    occupancy, the rows of every result, and the batch each launch ran
+    (the reference's test runs the same script)."""
+    import re
+
+    from repro_torch import Dataset
+    from repro_torch.core import distributed as D
+    from repro_torch.rdf.workloads import basic_queries
+
+    shapes = []
+    run_batch = D.DistributedExecutor.run_batch
+
+    def recorded(self, bounds_batch, *a, **k):
+        shapes.append(len(bounds_batch))
+        return run_batch(self, bounds_batch, *a, **k)
+
+    D.DistributedExecutor.run_batch = recorded
+    ds = Dataset.watdiv(scale=args["scale"], seed=0, threshold=0.25,
+                        device="cpu")
+    eng = ds.engine("distributed")
+    qs = basic_queries(ds.schema, seed=0, n_instances=8)
+    rows = []
+    for name, count in args["script"]:
+        insts = list(qs[name][:count])
+        if name == args["missing"]:
+            insts[0] = re.sub(args["pattern"], args["absent"], insts[0],
+                              count=1)
+        rows += [len(r) for r in eng.query_batch(insts)]
+    m = eng.metrics.summary()
+    return {"padding_waste": m["padding_waste"],
+            "batch_occupancy": m["batch_occupancy"],
+            "batches": m["batches"], "shapes": shapes, "rows": rows}
+
+
 JOBS = {"suite": job_suite, "queries": job_queries,
         "repartition": job_repartition, "build": job_build,
         "isolation": job_isolation, "serve": job_serve,
-        "auto_routing": job_auto_routing}
+        "auto_routing": job_auto_routing,
+        "repartition_batch": job_repartition_batch,
+        "launch_counts": job_launch_counts, "padding": job_padding}
 
 
 def main() -> None:

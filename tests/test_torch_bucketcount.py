@@ -12,7 +12,9 @@ reference's uint32 modulo, which is how the shuffle routes rows.  Pads
 sit in invalid rows, where the executor puts them: a *valid* row whose
 key is the pad counts in the reference path but not in the Pallas
 kernel, and counts nowhere in the port (a valid row never carries the
-pad).  The CUDA kernel's tests, and its launch plan's, are in
+pad).  A batch of rows, ``(B, n)`` keys into ``(B, n_buckets)``, is
+held row by row against both.  The CUDA kernel's tests, and its launch
+plan's, are in
 ``tests/test_torch_bucketcount_kernel.py``, which imports no JAX and so
 also runs on the card.
 """
@@ -111,4 +113,59 @@ def test_wrapper_contract():
         ops.bucket_count(keys, valid[:5], 2)
     np.testing.assert_array_equal(ops.bucket_count(keys, valid, 4).numpy(),
                                   [3, 3, 2, 2])
+    assert ops.launches == before        # the plain version is no launch
+
+
+# ---------------------------------------------------------------------------
+# A batch of rows: (B, n) keys and validity give (B, n_buckets)
+# ---------------------------------------------------------------------------
+
+def batch_of_rows(seed, batch, n, signed=True):
+    """``batch`` rows of :func:`keys_and_valid`, each with its own seed,
+    its own share of valid rows and a run of invalid rows at its end (the
+    executor's PAD tail), stacked to ``(batch, n)``."""
+    keys, valid = zip(*(keys_and_valid(seed + b, n, signed)
+                        for b in range(batch)))
+    keys, valid = np.stack(keys), np.stack(valid)
+    for b in range(batch):
+        valid[b, n - (b * 97) % (n + 1):] = False
+    return keys, valid
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 9])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_plain_matches_reference_row_by_row(batch, nb):
+    from repro.kernels import ref as rref
+    keys, valid = batch_of_rows(batch * 100 + nb, batch, 1000)
+    got = port(keys, valid, nb)
+    assert got.dtype == np.int32 and got.shape == (batch, nb)
+    for b in range(batch):
+        want = np.asarray(rref.bucket_count_ref(
+            jnp.asarray(keys[b]), jnp.asarray(valid[b]), nb))
+        np.testing.assert_array_equal(got[b], want)
+        np.testing.assert_array_equal(got[b], port(keys[b], valid[b], nb))
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 9])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_plain_matches_pallas_on_nonnegative_keys(batch, nb):
+    keys, valid = batch_of_rows(batch * 10 + nb, batch, 600, signed=False)
+    got = port(keys, valid, nb)
+    for b in range(batch):
+        np.testing.assert_array_equal(
+            got[b], reference(keys[b], valid[b], nb, pallas=True))
+
+
+def test_batched_wrapper_contract():
+    keys = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    valid = torch.ones(3, 4, dtype=torch.bool)
+    valid[1, 2:] = False
+    before = dict(ops.launches)
+    np.testing.assert_array_equal(ops.bucket_count(keys, valid, 2).numpy(),
+                                  [[2, 2], [1, 1], [2, 2]])
+    assert ops.bucket_count(keys[:0], valid[:0], 3).shape == (0, 3)
+    with pytest.raises(ValueError, match="shape"):
+        ops.bucket_count(keys, valid[:2], 2)
+    with pytest.raises(ValueError, match="batch"):
+        ops.bucket_count(keys[None], valid[None], 2)
     assert ops.launches == before        # the plain version is no launch

@@ -6,7 +6,8 @@ The file imports neither JAX nor the JAX package, so it also runs on a
 machine with a card and no JAX.  On the CPU it checks the plan: the path
 on each side of each cut, the grid, the 16-byte body's ends, and a model
 of the kernel's walk (head, body and tail, thread by thread) that must
-take every key exactly once and count what the plain version counts.
+take every key exactly once and count what the plain version counts,
+for one row and for a batch of rows (``blockIdx.y`` the row).
 The ``cuda`` tests hold the kernel exactly against the plain version
 (``ref.bucket_count_ref``) on the card and skip without one.  The
 wrapper's plain path is held against the JAX package's in
@@ -243,5 +244,96 @@ def test_cuda_paths_offsets_and_cuts_match_plain(monkeypatch, reg_max):
                         launches + (n > 0)
                     want = ref.bucket_count_ref(k, v, nb)
                     assert torch.equal(got, want), (nb, n, ko, vo, plan)
+    assert paths == ({"registers", "shared", "global"} if reg_max else
+                     {"shared", "global"})
+
+
+# ---------------------------------------------------------------------------
+# The batched launch: B rows of n keys, blockIdx.y the row
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [2, 7, 32, 65535])
+@pytest.mark.parametrize("n", [16, 17, 31, 32, 4096, 4100, 2**20])
+def test_batched_plan_rows_share_an_aligned_body(batch, n):
+    """Every row starts where the first row's body alignment repeats
+    (n a multiple of 16 keys), or the plan takes every key one at a
+    time; all rows' blocks together stay within the persistent grid,
+    with at least one a row."""
+    for key_off, valid_off in np.ndindex(4, 4):
+        key_ptr, valid_ptr = 4096 + 4 * key_off, 8192 + valid_off
+        plan = ops._bucket_plan(n, 2, SMS, key_ptr, valid_ptr, batch)
+        if n % ops.BUCKET_STEP_KEYS:
+            assert plan.lo == plan.hi == 0
+        for b in (0, 1, batch - 1):
+            row_k, row_v = key_ptr + 4 * b * n, valid_ptr + b * n
+            if plan.hi > plan.lo:
+                assert (row_k + 4 * plan.lo) % 16 == 0
+                assert (row_v + plan.lo) % 16 == 0
+        assert plan.blocks >= 1
+        assert plan.blocks * batch <= max(SMS * ops.BUCKET_BLOCKS_PER_SM,
+                                          batch)
+    one = ops._bucket_plan(n, 2, SMS, 4096, 8192)
+    assert ops._bucket_plan(n, 2, SMS, 4096, 8192, 1) == one
+
+
+@pytest.mark.parametrize("nb", [1, 3, 9, 256])
+@pytest.mark.parametrize("n", [4096, 4096 + 37])
+def test_model_of_the_batched_walk_counts_as_the_plain_version(nb, n):
+    """Each row's walk at its row offset, counted per thread and summed,
+    gives the plain version's row: a (3, n) batch whose row stride is
+    and is not a whole number of 16-key steps."""
+    batch = 3
+    keys, valid = keys_and_valid(nb + n, batch * n)
+    k, v = keys.reshape(batch, n), valid.reshape(batch, n)
+    plan = ops._bucket_plan(n, nb, 1, 0, 0, batch)._replace(blocks=1)
+    hist = np.zeros((batch, nb), dtype=np.int64)
+    for b in range(batch):
+        for idx in walked_keys(n, plan, ops.BUCKET_THREADS):
+            idx = np.asarray(idx, dtype=np.int64)
+            live = v[b, idx] & (k[b, idx] != PAD)
+            dest = (k[b, idx].astype(np.int64) & 0xFFFFFFFF) % nb
+            hist[b] += np.bincount(dest[live], minlength=nb)
+    want = ref.bucket_count_ref(torch.from_numpy(k), torch.from_numpy(v), nb)
+    np.testing.assert_array_equal(hist, want.numpy())
+
+
+#: phase 2's batched cases: rows, and bucket counts on each side of each
+#: cut of the kernel's paths
+BATCHES = [1, 2, 7, 32]
+BATCH_BUCKETS = [1, 2, 3, ops.BUCKET_REG_MAX, ops.BUCKET_REG_MAX + 1, 256,
+                 ops.BUCKET_SMEM_MAX, ops.BUCKET_SMEM_MAX + 1, 20000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg_max", [ops.BUCKET_REG_MAX, 0])
+def test_cuda_batched_launch_matches_plain(monkeypatch, reg_max):
+    """A (B, n) batch is one launch, exactly the plain version: every
+    path, row lengths that are and are not a multiple of 16 keys, rows
+    starting 16-byte aligned and at a 1-key offset (``-m cuda`` on the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(ops, "BUCKET_REG_MAX", reg_max)
+    paths = set()
+    for batch in BATCHES:
+        for n in (16, 33, 4096, 4097):
+            keys, valid = keys_and_valid(batch * n, batch * n + 1)
+            for nb in BATCH_BUCKETS:
+                for off in (0, 1):
+                    k = torch.from_numpy(keys).cuda()[off:off + batch * n] \
+                        .view(batch, n)
+                    v = torch.from_numpy(valid).cuda()[off:off + batch * n] \
+                        .view(batch, n)
+                    plan = ops._bucket_plan(n, nb, SMS, k.data_ptr(),
+                                            v.data_ptr(), batch)
+                    paths.add(plan.path)
+                    launches = ops.launches["bucket_count"]
+                    got = ops.bucket_count(k, v, nb)
+                    torch.cuda.synchronize()
+                    assert ops.launches["bucket_count"] == launches + 1
+                    want = ref.bucket_count_ref(k.cpu(), v.cpu(), nb)
+                    assert got.shape == (batch, nb)
+                    assert torch.equal(got.cpu(), want), \
+                        (batch, n, nb, off, plan)
     assert paths == ({"registers", "shared", "global"} if reg_max else
                      {"shared", "global"})

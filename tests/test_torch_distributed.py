@@ -7,15 +7,22 @@ time limit.  At 2 ranks the port must equal ``repro``'s distributed
 engine on a mesh of 2 forced host devices (run in a subprocess, as
 ``tests/test_distributed.py`` runs its mesh) **row for row and capacity
 for capacity** on the first instance of each of the 20 WatDiv basic
-templates: both concatenate the shards in shard order.  Global-modifier
+templates: both concatenate the shards in shard order.  Each
+template's instances as one batch (the reference's vmapped ``shard_map``
+program; here one launch sequence on every rank) must equal the
+reference's ``query_batch`` row for row and cap for cap too, the engine
+must pad the distributed seat as the reference's does, and a batch must
+make as many kernel calls and exchanges as one request.  Global-modifier
 queries, which the reference's distributed engine cannot serve on this
-JAX version (ROADMAP queue 3), are held against ``jit`` instead.  Also:
-``shard_table`` byte for byte, ``repartition``'s routing and overflow,
-the distributed ExtVP build byte-identical to the numpy build, and each
-executor through ``repro.analysis.verifier.verify_executor``.
+JAX version (ROADMAP queue 3), are held against ``jit`` instead, single
+and batched.  Also: ``shard_table`` byte for byte, ``repartition``'s
+routing and overflow, one row and a batch, the distributed ExtVP build
+byte-identical to the numpy build, and each executor through
+``repro.analysis.verifier.verify_executor``.
 """
 
 import collections
+import json
 import os
 import pickle
 import re
@@ -53,6 +60,17 @@ TWO_POW_24_QUERIES = [
     "SELECT ?s WHERE { ?s ex:p ?x FILTER(?x > 16777216) }",
     "SELECT ?s ?x WHERE { ?s ex:p ?x } ORDER BY ?x",
     "SELECT ?s ?x WHERE { ?s ex:p ?x } ORDER BY DESC(?x)"]
+
+
+#: the engine's padding on the distributed seat: batches of 5, 7 and 3
+#: requests (bucket shapes 8, 8 and 4), the first of L1's with a user the
+#: dictionary lacks
+PADDING = {"script": [["L1", 5], ["L2", 7], ["S1", 3]], "missing": "L1",
+           "pattern": r"wsdbm:User\d+", "absent": "wsdbm:User99999999"}
+#: templates whose one request and batch of 8 are counted: stars (no
+#: exchange), linear and snowflake shapes (shuffles of bound relations
+#: and of bounds-free ones), and C3's OPTIONAL
+COUNTED = ("S1", "L1", "L2", "F1", "F3", "C3")
 
 
 def multiset(data):
@@ -124,6 +142,29 @@ def test_repartition_flags_bucket_overflow_at_8_ranks(tmp_path):
     assert all(r["sent"] == 256 for r in res[1:]) and res[0]["sent"] == 0
 
 
+@pytest.mark.parametrize("world", [2, 3])
+def test_batched_repartition_equals_one_row_calls(tmp_path, world):
+    """A batch of rows with their own valid counts (a full row, a part,
+    none, a few, and a full row bound for rank 0 alone, which overflows
+    ``out_cap`` there) is one exchange, and gives each row's rows,
+    count, flag and rows sent exactly as a call of that row alone."""
+    ns = [256, 100, 0, 17, 256]
+    res = run_group("repartition_batch", world, tmp_path, cap=256, ns=ns,
+                    skew_row=4, out_cap=300)
+    for rank, r in enumerate(res):
+        assert r["exchanges"] == 1
+        got = r["batch"]
+        assert got["rows"].shape == (len(ns), 300, 2)
+        for b, one in enumerate(r["single"]):
+            np.testing.assert_array_equal(got["rows"][b], one["rows"])
+            assert got["n"][b] == one["n"]
+            assert got["overflow"][b] == one["overflow"]
+            assert got["sent"][b] == one["sent"]
+        assert list(got["overflow"]) == [False] * 4 + [rank == 0]
+    for b in range(len(ns) - 1):
+        assert sum(r["batch"]["n"][b] for r in res) == world * ns[b]
+
+
 # ---------------------------------------------------------------------------
 # The engine against the reference's distributed engine
 # ---------------------------------------------------------------------------
@@ -136,7 +177,8 @@ _REFERENCE = textwrap.dedent("""
     from repro.engine.backends import DistributedBackend
     from repro.engine.engine import Engine
     from repro.rdf.workloads import basic_queries
-    scale, seed, tau, dual, out = sys.argv[1:6]
+    import json, re
+    scale, seed, tau, dual, out, padding = sys.argv[1:7]
     assert len(jax.devices()) == 2
     ds = Dataset.watdiv(scale=float(scale), seed=int(seed),
                         threshold=float(tau))
@@ -144,7 +186,7 @@ _REFERENCE = textwrap.dedent("""
     eng = ds.engine("distributed", mesh=mesh)
     dual_eng = Engine(ds, backend=DistributedBackend(dual_partition=True),
                       mesh=mesh)
-    res = {"templates": {}, "dual": {}}
+    res = {"templates": {}, "dual": {}, "batches": {}}
     qs = basic_queries(ds.schema, seed=int(seed))
     for name, insts in qs.items():
         r = eng.query(insts[0])
@@ -152,11 +194,29 @@ _REFERENCE = textwrap.dedent("""
         res["templates"][name] = (r.cols, r.data,
                                   list(getattr(p, "executor").caps)
                                   if hasattr(p, "executor") else None)
+        rb = eng.query_batch(insts)
+        res["batches"][name] = ([(x.cols, x.data) for x in rb],
+                                list(p.executor.caps)
+                                if hasattr(p, "executor") else None)
     for name in dual.split(","):
         r = dual_eng.query(qs[name][0])
         res["dual"][name] = (r.cols, r.data,
                              list(dual_eng.prepare(qs[name][0]).executor.caps))
     res["fallbacks"] = eng.metrics.device_fallbacks
+    padding = json.loads(padding)
+    pad_eng = Engine(ds, backend=DistributedBackend(), mesh=mesh)
+    q8 = basic_queries(ds.schema, seed=0, n_instances=8)
+    rows = []
+    for name, count in padding["script"]:
+        insts = list(q8[name][:count])
+        if name == padding["missing"]:
+            insts[0] = re.sub(padding["pattern"], padding["absent"],
+                              insts[0], count=1)
+        rows += [len(r) for r in pad_eng.query_batch(insts)]
+    m = pad_eng.metrics.summary()
+    res["padding"] = {"padding_waste": m["padding_waste"],
+                      "batch_occupancy": m["batch_occupancy"],
+                      "batches": m["batches"], "rows": rows}
     with open(out, "wb") as f:
         pickle.dump(res, f)
 """)
@@ -170,7 +230,7 @@ def suites(tmp_path_factory):
     out = tmp / "reference.pkl"
     ref = subprocess.Popen(
         [sys.executable, "-c", _REFERENCE, str(SCALE), str(SEED), str(TAU),
-         ",".join(DUAL), str(out)], env=dict(os.environ,
+         ",".join(DUAL), str(out), json.dumps(PADDING)], env=dict(os.environ,
                                               PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
@@ -198,6 +258,55 @@ def test_basic_template_matches_reference_distributed(suites, name):
         np.testing.assert_array_equal(got["data"], data)
         assert got["info"]["caps"] == caps
         assert got["batch_equal"]
+
+
+@pytest.mark.parametrize("name", TEMPLATES)
+def test_basic_template_batch_matches_reference_distributed(suites, name):
+    """Every instance of the template as one batch: each binding's rows
+    equal the reference's vmapped program's row for row, and the caps
+    after the batch are equal, on every rank."""
+    reference, port = suites
+    want, caps = reference["batches"][name]
+    for rank in port:
+        got = rank["templates"][name]
+        assert len(got["batch"]) == len(want)
+        for g, (cols, data) in zip(got["batch"], want):
+            assert g["cols"] == cols
+            assert g["data"].dtype == np.int32
+            np.testing.assert_array_equal(g["data"], data)
+        assert got["batch_info"]["caps"] == caps
+
+
+def test_distributed_seat_pads_as_the_reference(suites, tmp_path):
+    """Batches of 5, 7 and 3 requests are padded to 8, 8 and 4 on every
+    rank (padding waste 5/20, occupancy 15/20), as the reference's
+    distributed engine pads them, and the request whose constant the
+    dictionary lacks keeps its batch's shape."""
+    reference, _ = suites
+    want = reference["padding"]
+    for r in run_group("padding", 2, tmp_path, scale=SCALE, **PADDING):
+        assert r["padding_waste"] == want["padding_waste"] == 5 / 20
+        assert r["batch_occupancy"] == want["batch_occupancy"] == 15 / 20
+        assert r["batches"] == want["batches"] == 3
+        assert r["shapes"] == [8, 8, 4]
+        assert r["rows"] == want["rows"]
+        assert r["rows"][0] == 0
+
+
+def test_a_batch_makes_the_calls_of_one_request(tmp_path):
+    """A batch of 8 is one launch sequence on every rank: as many
+    bucket-count and join-probe calls and exchanges as one request, a
+    bounds-free relation shuffled once, each in one attempt."""
+    res = run_group("launch_counts", 2, tmp_path, scale=SCALE, batch=8,
+                    templates=list(COUNTED))
+    for r in res:
+        for name in COUNTED:
+            one, batch = r[name]["single"], r[name]["batch"]
+            assert one["attempts"] == batch["attempts"] == 1, name
+            assert batch == one, name
+        assert r["S1"]["batch"]["all_to_all"] == 0
+        assert all(r[n]["batch"]["all_to_all"] > 0 for n in ("L1", "F1"))
+    assert res[0] == res[1]
 
 
 def test_dual_partition_matches_reference_distributed(suites):
@@ -262,6 +371,26 @@ def test_executors_pass_verify_executor(suites):
     assert checked == 20
 
 
+def test_batched_executors_pass_verify_executor(suites):
+    """Each executor's slots after its batch (the caps it grew over the
+    batch) pass the reference's verifier."""
+    from repro.rdf.workloads import basic_queries
+    _, port = suites
+    rds = RDataset.watdiv(scale=SCALE, seed=SEED, threshold=TAU)
+    jit = rds.engine("jit")
+    checked = 0
+    for name, insts in basic_queries(rds.schema, seed=SEED).items():
+        info = port[0]["templates"][name].get("batch_info")
+        ref_ex = getattr(jit.prepare(insts[0]), "executor", None)
+        assert (info is None) == (ref_ex is None), name
+        if info is None:
+            continue
+        report = verify_executor(_CapSlots(ref_ex, info))
+        assert report.ok, (name, report)
+        checked += 1
+    assert checked == 20
+
+
 # ---------------------------------------------------------------------------
 # The engine against jit, where the reference's distributed engine fails
 # ---------------------------------------------------------------------------
@@ -302,6 +431,44 @@ def _held_against_jit(triples, queries, res):
 ], ids=["modifiers", "unbound", "two-pow-24"])
 def test_modifier_and_unbound_queries_match_jit(tmp_path, triples, queries):
     res = run_group("queries", 2, tmp_path, triples=triples,
+                    queries=queries)
+    _held_against_jit(triples, queries, res)
+
+
+#: template instances that batch: a bound user or product (one missing
+#: from the dictionary), a filter constant, a cross join whose right
+#: side binds no constant, under DISTINCT, ORDER BY and LIMIT
+BATCHED_MODIFIER_QUERIES = [
+    f"SELECT DISTINCT ?x WHERE {{ ex:u{u} ex:likes ?p . ?p ex:price ?x }} "
+    "ORDER BY ?x" for u in (1, 2, 3, 1)] + [
+    f"SELECT ?u ?x WHERE {{ ?u ex:likes ?p . ?p ex:price ?x "
+    f"FILTER(?u != ex:u{u}) }} ORDER BY DESC(?x)" for u in (1, 2, 2)] + [
+    f"SELECT ?u WHERE {{ ?u ex:likes ex:p{k} }} ORDER BY ?u LIMIT 1"
+    for k in (1, 2, 3, 4)] + [
+    f"SELECT ?p ?q WHERE {{ ex:u{u} ex:likes ?p . ?q ex:price ?x }} "
+    "ORDER BY ?p ?q" for u in (1, 2)]
+#: unbound-predicate and OPTIONAL / UNION instances that batch, with
+#: bounds-free relations beside bound ones
+BATCHED_UNBOUND_QUERIES = [
+    f"SELECT * WHERE {{ a{i} p0 ?o OPTIONAL {{ ?o p1 ?w }} }} ORDER BY ?w"
+    for i in (1, 2, 3)] + [
+    f"SELECT * WHERE {{ a{i} ?p ?o }}" for i in (1, 3, 9)] + [
+    f"SELECT ?s ?p WHERE {{ ?s ?p b{i} }}" for i in (1, 2)] + [
+    f"SELECT * WHERE {{ ?s p0 ?o . ?o p1 c{i} }}" for i in (1, 2)] + [
+    f"SELECT * WHERE {{ {{ a{i} p0 ?o }} UNION {{ ?o p1 ?w }} }}"
+    for i in (1, 2)] + [
+    f"SELECT DISTINCT ?w WHERE {{ a{i} p0 ?o OPTIONAL {{ ?o p1 ?w }} }}"
+    for i in (1, 2)]
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("triples,queries", [
+    (MOD_TRIPLES, MODIFIER_QUERIES + BATCHED_MODIFIER_QUERIES),
+    (UNBOUND_TRIPLES, UNBOUND_QUERIES + BATCHED_UNBOUND_QUERIES),
+], ids=["modifiers", "unbound"])
+def test_batched_modifier_and_unbound_queries_match_jit(tmp_path, world,
+                                                        triples, queries):
+    res = run_group("queries", world, tmp_path, triples=triples,
                     queries=queries)
     _held_against_jit(triples, queries, res)
 

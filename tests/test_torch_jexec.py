@@ -432,6 +432,26 @@ def test_batched_compact(out_cap, shared_rows):
                     row)
 
 
+@pytest.mark.parametrize("what", ["mask", "counts", "past int32"])
+@pytest.mark.parametrize("batch", [1, 2, 5])
+def test_row_prefix_sums_through_one_flat_scan(what, batch):
+    """``_cumsum_rows`` (one scan over the flattened rows less each row's
+    base) equals an int32 scan along each row: masks, match counts, and
+    counts whose sum over the batch passes int32 while each row's fits."""
+    rng = np.random.default_rng(batch)
+    if what == "mask":
+        x = torch.from_numpy(rng.random((batch, 1000)) < 0.4)
+    elif what == "counts":
+        x = torch.from_numpy(rng.integers(0, 50, (batch, 777),
+                                          dtype=np.int32))
+    else:
+        x = torch.full((batch, 3), 2**29, dtype=torch.int32)
+    want = np.cumsum(x.numpy().astype(np.int64), axis=1)
+    got = TJ._cumsum_rows(x)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 SUBJECTS = (3, 19, 99, -1)     # present, present, absent, UNBOUND
 
 
