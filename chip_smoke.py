@@ -132,13 +132,38 @@ Phases (any failure exits non-zero and prints no result line):
    families (the tuner's per-slot times among them).  8b, at ``--compare-scale`` after 7b: the
    same for ``AUTO_SMALL_ONLY`` through auto and all 20 templates under
    pt.  The cuts are printed as ``reduced``.
+9. static analysis and the missing-constant repair, with the kernels'
+   launch counts reset just before each part and read just after.  9a,
+   at ``--scale`` after 8a, on phase 3's dataset: a fresh
+   ``Engine(RuntimeConfig(verify_plans=True))`` prepares every template
+   (each report free of errors and warnings; per template the
+   verifier's host ms, the median of ``VERIFY_REPS`` calls of
+   ``verify_prepared``, beside the prepare's) and serves one instance of
+   each but ``BATCH_CUT``, single and as one batch of 3, each
+   equal row for row to phase 3's engine, with the join probe launched
+   through it; the eager engine's prepared forms pass the same
+   verifier, with its checks run on every form that holds a plan; a prepared plan with its executor's last cap slot dropped
+   must raise ``PlanVerificationError`` through ``Engine.query`` with no
+   launch and nothing cached.  9b, at ``--compare-scale`` after 8b:
+   ``explain()``'s verdict line of every template equal on the card
+   engine and the CPU engine; the repair's queries (``REPAIR_QUERIES``,
+   a constant missing from the dictionary under OPTIONAL, in a UNION
+   branch, in a FILTER, and one in a required pattern) on a small
+   dataset built on the card, on the torch backend and on the
+   distributed backend at one NCCL rank, single and batched, each equal
+   to the oracle (``core/reference.py``), the semi-join launched by the
+   card build, the join probe by each backend and the bucket count by
+   the distributed one, each part counted apart;
+   ``examples/quickstart_torch.py`` (its two ``True`` lines) and
+   ``examples/serve_sparql_torch.py`` (its agreement line) as
+   subprocesses on the card, each exiting 0.
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
 over the main path, one with the batched probe's (phase 2's check, the
 served step's times, each template's launches per served batch), one
-with phase 7's numbers, one with phase 8's, one with the kernels'
-numbers, then the card's name and power limit, then
+with phase 7's numbers, one with phase 8's, one with phase 9's, one
+with the kernels' numbers, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -3184,6 +3209,250 @@ def served_auto(srv, eng, ds, queries) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: static analysis and the missing-constant repair on the card
+# ---------------------------------------------------------------------------
+
+#: repetitions of ``verify_prepared`` a template; its host time is their
+#: median
+VERIFY_REPS = 20
+#: the missing-constant repair: each query holds a constant absent from
+#: the dictionary outside its required patterns, so SPARQL keeps the two
+#: rows of ``?s ex:pa ?o``; the last one's is required (an empty answer)
+REPAIR_TRIPLES = [("ex:e0", "ex:pa", "ex:e1"), ("ex:e1", "ex:pa", "ex:e2"),
+                  ("ex:e2", "ex:pb", "ex:e0"), ("ex:e1", "ex:pb", "ex:e3")]
+REPAIR_QUERIES = [
+    "SELECT * WHERE { ?s ex:pa ?o OPTIONAL { ?o ex:pb ex:e99 } }",
+    "SELECT * WHERE { { ?s ex:pa ?o } UNION { ?s ex:pb ex:e99 } }",
+    "SELECT * WHERE { ?s ex:pa ?o FILTER(?o != ex:e99) }",
+    'SELECT * WHERE { ?s ex:pa ?o FILTER(?o != "lit") }',
+    "SELECT * WHERE { ?s ex:pa ex:e99 . ?s ex:pa ?o }"]
+#: the serve twin's arguments on the card (its defaults: scale 1.0)
+SERVE_TWIN_ARGS = ("--scale", "1.0", "--requests", "60")
+
+
+def verify_reports(eng, ds, queries, analysis) -> dict:
+    """Every template prepared on ``eng`` (an engine with
+    ``verify_plans`` on, so the prepare runs the verifier before it
+    caches the plan): its report must be free of errors and warnings,
+    and must have run its checks wherever the prepared form holds a plan
+    or an executor (only an eager host operator tree, which holds
+    neither, reports "skipped"); the verifier's host ms (median of
+    ``VERIFY_REPS`` calls) beside the prepare's (one cache miss,
+    verification included)."""
+    out = {}
+    for name, insts in queries.items():
+        t = time.perf_counter()
+        prepared = eng.prepare(insts[0])
+        prepare_ms = (time.perf_counter() - t) * 1e3
+        report = analysis.verify_prepared(prepared, ds.catalog)
+        compiled = getattr(prepared, "executor", None) is not None or \
+            getattr(prepared, "plan", None) is not None
+        if report.diagnostics or (compiled and not report.checks):
+            raise AssertionError(f"{name}: {report.describe()}")
+        times = []
+        for _ in range(VERIFY_REPS):
+            t = time.perf_counter()
+            analysis.verify_prepared(prepared, ds.catalog)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = {"prepare_ms": round(prepare_ms, 4),
+                     "verify_ms": round(float(np.median(times)), 4),
+                     "checks": len(report.checks)}
+    return out
+
+
+def phase_analysis(ds, eng, queries, ops, Engine, RuntimeConfig,
+                   analysis) -> dict:
+    """9a on phase 3's dataset: a fresh engine with ``verify_plans`` on
+    prepares every template (every report clean) and serves one instance
+    of each but ``BATCH_CUT``, single and as one batch of 3, each
+    result equal row for row to phase 3's engine, with the join probe's
+    launches counted over the verified engine's calls; the eager
+    engine's prepared forms pass the same verifier; and a corrupt plan
+    (its executor's last cap slot dropped) must raise
+    ``PlanVerificationError`` with nothing launched and nothing
+    cached."""
+    torch.cuda.reset_peak_memory_stats()
+    veng = Engine(ds, runtime=RuntimeConfig(verify_plans=True))
+    assert veng.device.type == "cuda" and veng.config.verify_plans
+    torch_reports = verify_reports(veng, ds, queries, analysis)
+    launches, served = 0, 0
+    for name, insts in queries.items():
+        if name in BATCH_CUT:
+            continue
+        for how, qs in (("query", insts[:1]), ("query_batch", insts[:3])):
+            before = ops.launches["join_probe"]
+            got = veng.query(qs[0]) if how == "query" \
+                else veng.query_batch(qs)
+            launches += ops.launches["join_probe"] - before
+            want = eng.query(qs[0]) if how == "query" \
+                else eng.query_batch(qs)
+            for a, b in zip(got if how == "query_batch" else [got],
+                            want if how == "query_batch" else [want]):
+                if a.cols != b.cols or not np.array_equal(a.data, b.data):
+                    raise AssertionError(f"{name} ({how}): the verified "
+                                         "engine != phase 3's engine")
+                served += 1
+            del got, want
+    if launches <= 0:
+        raise AssertionError("no join_probe launch through the verified "
+                             "engine")
+    no_fallbacks(veng, "verified engine")
+    eager = Engine(ds, backend="eager",
+                   runtime=RuntimeConfig(verify_plans=True))
+    eager_reports = verify_reports(eager, ds, queries, analysis)
+    del veng, eager
+    # a corrupt plan: the torch backend's executor loses its last slot
+    bad = Engine(ds, runtime=RuntimeConfig(verify_plans=True))
+    backend = bad._backends["torch"]
+    inner = backend._prepared
+
+    def corrupt(template, ctx, cp, spine):
+        prepared = inner(template, ctx, cp, spine)
+        prepared.executor.caps = prepared.executor.caps[:-1]
+        return prepared
+
+    backend._prepared = corrupt
+    ops.reset_launches()
+    try:
+        bad.query(queries["S1"][0])
+    except analysis.PlanVerificationError as exc:
+        refused = list(exc.rules())
+    else:
+        raise AssertionError("the corrupt plan was not refused")
+    if "cap-slots" not in refused or sum(ops.launches.values()) != 0 or \
+            len(bad.cache) != 0:
+        raise AssertionError(f"the corrupt plan: rules {refused}, launches "
+                             f"{dict(ops.launches)}, cached {len(bad.cache)}")
+    del bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    v = [r["verify_ms"] for r in torch_reports.values()]
+    pr = [r["prepare_ms"] for r in torch_reports.values()]
+    log(f"  verified engine: {len(torch_reports)} templates prepared, every "
+        f"report clean ({torch_reports['S1']['checks']} checks); verify "
+        f"median {min(v):.4f}-{max(v):.4f} ms a template against prepare "
+        f"{min(pr):.1f}-{max(pr):.1f} ms; {served} results equal row for "
+        f"row to phase 3's engine; join_probe launches through it "
+        f"{launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, r in torch_reports.items():
+        e = eager_reports[name]
+        eager = f"{e['verify_ms']:.4f} ms" if e["checks"] else \
+            "skipped: a host operator tree"
+        log(f"  {name}: verify {r['verify_ms']:.4f} ms (eager {eager}), "
+            f"prepare {r['prepare_ms']:.3f} ms")
+    log(f"  corrupt plan (dropped cap slot): refused with {refused}, "
+        f"0 launches, nothing cached")
+    return {"torch": torch_reports, "eager": eager_reports,
+            "served_equal": served, "join_probe_launches": launches,
+            "corrupt_refused": refused}
+
+
+def repair_check(eng, ref_mod, parse_sparql, ds, what: str) -> int:
+    """The repair's queries on ``eng``, single and as one batch: each
+    result equal as a multiset to the port's oracle
+    (``core/reference.py``)."""
+    batched = eng.query_batch(REPAIR_QUERIES)
+    n = 0
+    for q, b in zip(REPAIR_QUERIES, batched):
+        want = ref_mod.mappings_to_multiset(ref_mod.execute_reference(
+            parse_sparql(q, ds.dictionary), ds.catalog.tt,
+            ds.dictionary.values), ["?o", "?s"])
+        for got in (eng.query(q), b):
+            if dict(got.as_multiset(["?o", "?s"])) != want:
+                raise AssertionError(f"{what}: {q} differs from the oracle")
+            n += 1
+    return n
+
+
+def run_example(here: str, *argv) -> str:
+    """An example twin as a subprocess on the card; it must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    out = subprocess.run([sys.executable, *argv], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"{argv[0]} exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def phase_analysis_small(ds, queries, ops, Dataset, here: str) -> dict:
+    """9b at the compare scale: ``explain()``'s verdict line of every
+    template equal on the card engine and the CPU port engine; the
+    repair's queries on a small dataset built on the card, on the torch
+    backend and on the distributed backend (one NCCL rank), single and
+    batched, each equal to the oracle; the example twins as subprocesses
+    on the card."""
+    import torch.distributed as dist
+    from repro_torch.core import reference as ref_mod
+    from repro_torch.core.sparql import parse_sparql
+    gpu, cpu = ds.engine(), ds.engine(device="cpu")
+    verdicts = {}
+    for name, insts in queries.items():
+        g = gpu.explain(insts[0]).splitlines()[-1]
+        c = cpu.explain(insts[0]).splitlines()[-1]
+        if g != c or not g.startswith("verify: ok"):
+            raise AssertionError(f"{name}: explain verdict {g!r} on the "
+                                 f"card, {c!r} on the CPU")
+        verdicts[name] = g
+    del cpu
+    # each part's launches apart: the card build, then each backend
+    ops.reset_launches()
+    small = Dataset.from_triples(REPAIR_TRIPLES, threshold=1.0)
+    if small.device.type != "cuda":
+        raise AssertionError("the repair dataset is not on the card")
+    launches = {"build": dict(ops.launches)}
+    ops.reset_launches()
+    n = repair_check(small.engine(), ref_mod, parse_sparql, small, "torch")
+    launches["torch"] = dict(ops.launches)
+    rdv = os.path.join(here, "build", "smoke_nccl_rendezvous_repair")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        ops.reset_launches()
+        n += repair_check(small.engine("distributed"), ref_mod,
+                          parse_sparql, small, "distributed")
+        launches["distributed"] = dict(ops.launches)
+    finally:
+        dist.destroy_process_group()
+    need = {"build": ("semijoin_membership",), "torch": ("join_probe",),
+            "distributed": ("join_probe", "bucket_count")}
+    if any(launches[part][k] <= 0 for part, ks in need.items() for k in ks):
+        raise AssertionError(f"a kernel of the repair's path was not "
+                             f"launched (needed: {need}): {launches}")
+    log(f"  explain verdicts: {len(verdicts)} templates, card == CPU, "
+        f"{sorted(set(v.split(' (')[0] for v in verdicts.values()))}")
+    log(f"  repair: {len(REPAIR_QUERIES)} queries, {n} results (torch and "
+        f"distributed, single and batched) equal to the oracle; launches "
+        f"of the card build {launches['build']}, of the torch backend "
+        f"{launches['torch']}, of the distributed backend "
+        f"{launches['distributed']}")
+    t = time.perf_counter()
+    quick = run_example(here, "examples/quickstart_torch.py")
+    quick_s = time.perf_counter() - t
+    agree = [ln for ln in quick.splitlines() if ln.endswith(": True")]
+    if len(agree) != 2:
+        raise AssertionError(f"quickstart twin agreement lines: {agree}")
+    t = time.perf_counter()
+    served = run_example(here, "examples/serve_sparql_torch.py",
+                         *SERVE_TWIN_ARGS)
+    serve_s = time.perf_counter() - t
+    if "served results agree with single queries: True" not in served:
+        raise AssertionError(f"serve twin:\n{served[-2000:]}")
+    summary = [ln.strip() for ln in served.splitlines()
+               if ln.startswith(("served ", "  latency", "  micro"))]
+    log(f"  quickstart twin: exit 0 in {quick_s:.1f} s, {agree}")
+    log(f"  serve twin {' '.join(SERVE_TWIN_ARGS)}: exit 0 in {serve_s:.1f} "
+        f"s; {summary}")
+    return {"verdicts_equal": len(verdicts), "repair_results": n,
+            "repair_launches": launches, "quickstart_s": round(quick_s, 1),
+            "serve_twin_s": round(serve_s, 1), "serve_twin": summary}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=340.0)
@@ -3204,7 +3473,7 @@ def main() -> int:
         return rank_main(args)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch import Dataset, Engine
+    from repro_torch import Dataset, Engine, RuntimeConfig, analysis
     from repro_torch.core import distributed as dmod
     from repro_torch.core import extvp_build as eb
     from repro_torch.core import jexec
@@ -3265,6 +3534,10 @@ def main() -> int:
         args, ds, eng, queries, ops, args.scale, big, big,
         serve["layouts"][str(args.scale)]["p50_ms"], serve_mix=True)
     adaptive["launches"] = dict(ops.launches)
+    stage(f"[9a] static analysis at scale {args.scale}")
+    ops.reset_launches()
+    analysis9 = {"a": phase_analysis(ds, eng, queries, ops, Engine,
+                                     RuntimeConfig, analysis)}
     del ds, eng, queries, host_ext
     gc.collect()
     torch.cuda.empty_cache()
@@ -3305,6 +3578,13 @@ def main() -> int:
     log(f"  launches over phase 8 (8a and 8b): {adaptive['launches']}")
     for line in adaptive["reduced"]:
         log(f"  reduced: {line}")
+    stage(f"[9b] static analysis and the repair at scale "
+          f"{args.compare_scale}")
+    analysis9["b"] = phase_analysis_small(ds, queries, ops, Dataset, here)
+    analysis9["reduced"] = [
+        f"9a serves {', '.join(BATCH_CUT)} through the verified "
+        f"engine at neither scale: their batches do not fit on the card "
+        f"at {args.scale}; both are prepared and verified"]
     del ds, queries
     gc.collect()
     torch.cuda.empty_cache()
@@ -3327,6 +3607,7 @@ def main() -> int:
         launches_by_template=serve["server"]["batches"])}), flush=True)
     print(json.dumps({"phase7": serve}), flush=True)
     print(json.dumps({"phase8": adaptive}), flush=True)
+    print(json.dumps({"phase9": analysis9}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

@@ -182,6 +182,7 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
     # a valid row never carries the probe pad, so the kernel's pad rule
     # drops nothing that repartition sends
     counts = ops.bucket_count(key, valid, n_shards).to(_I64)
+    # replint: disable=int32-overflow -- an int64 mask: the uint32 view of an int32 key, as the reference's bucket rule
     dest = torch.where(valid, (key.to(_I64) & 0xFFFFFFFF) % n_shards,
                        n_shards)
     bucket_cap = max(16, round_up_pow2(2 * cap // n_shards + 16))

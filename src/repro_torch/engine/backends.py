@@ -189,7 +189,7 @@ class _EagerPrepared(PreparedQuery):
     def run(self, binding: Optional[ConstantBinding] = None,
             trace=None) -> Result:
         binding = binding or _NO_BINDING
-        if binding.missing:
+        if binding.short_circuit:
             return self._empty()
         sid = trace.start("host.execute", backend="eager") \
             if trace is not None else None
@@ -219,9 +219,12 @@ class _VectorizedPrepared(PreparedQuery):
     of them into a leading batch axis and runs the whole micro-batch as
     one launch sequence (:meth:`PlanExecutor.run_batch`), so the Engine
     pads a chunk to its bucket shape and the batch-shape tuner observes
-    it.  A missing-constant binding (S2RDF's statistics-only empty
-    answer) is answered on the host and takes no slot: the batch is
-    padded back to its shape by repeating a live binding."""
+    it.  A binding whose missing constant fills a required slot (S2RDF's
+    statistics-only empty answer) is answered on the host and takes no
+    slot: the batch is padded back to its shape by repeating a live
+    binding.  A constant missing elsewhere (under OPTIONAL, in a UNION
+    branch, in a FILTER) is bound as ``MISSING_TERM``, which matches no
+    row, and its binding is live like any other."""
 
     vectorized_batch = True
 
@@ -239,7 +242,7 @@ class _VectorizedPrepared(PreparedQuery):
     def run(self, binding: Optional[ConstantBinding] = None,
             trace=None) -> Result:
         binding = binding or _NO_BINDING
-        if binding.missing:
+        if binding.short_circuit:
             if trace is not None:
                 trace.event("short_circuit", why="constant missing "
                             "from the dictionary")
@@ -264,7 +267,7 @@ class _VectorizedPrepared(PreparedQuery):
         bounds: List[np.ndarray] = []
         fconsts: List[np.ndarray] = []
         for i, b in enumerate(bindings):
-            if b.missing:
+            if b.short_circuit:
                 results[i] = self._empty()
             else:
                 live.append(i)

@@ -8,8 +8,9 @@
   template, compiled plan, executor with its device-resident tables), so
   a repeated templated query is served with zero parsing and zero
   compilation: its constants re-bind as runtime inputs;
-* the statistics short-circuit (provably-empty plans and constants
-  missing from the dictionary are answered without touching data);
+* the statistics short-circuit (provably-empty plans, and constants
+  missing from the dictionary in a required triple pattern, are
+  answered without touching data);
 * the **adaptive runtime** (``backend="auto"``): a per-template
   :class:`~repro_torch.runtime.router.BackendRouter` that measures
   eager / torch / distributed latency and routes each signature to its
@@ -22,6 +23,11 @@
   histograms, plan-cache hit rate, empty answers, host fallbacks, rows
   served, batches, per-backend routing counts, the Prometheus
   exposition;
+* the plan verifier (:mod:`repro_torch.analysis.verifier`), run on
+  every plan-cache miss before the prepared query is cached when the
+  runtime config's ``verify_plans`` is on (a rejected plan raises
+  :class:`~repro_torch.analysis.PlanVerificationError` and never
+  launches), and reported by ``explain()`` whatever the knob says;
 * span tracing (:mod:`repro_torch.obs`), inert until the runtime
   config's ``trace_sample_rate`` is above 0, and ``explain()``.
 
@@ -44,6 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.verifier import verify_prepared
 from repro_torch.core.algebra import BGP
 from repro_torch.core.modifiers import peel_spine
 from repro_torch.device import resolve_device
@@ -353,6 +360,12 @@ class Engine:
         prepared = self._backends[bname].prepare(template, self.ctx)
         if trace is not None:
             trace.end(sid, fallback=prepared.fallback)
+        if self.config.verify_plans:
+            # before the plan is cached: nothing it rejects ever launches
+            sid = trace.start("verify") if trace is not None else None
+            verify_prepared(prepared, self.ctx.catalog).raise_if_failed()
+            if trace is not None:
+                trace.end(sid)
         key = sig if template.rebindable else "=" + _normalize(qtext)
         self.cache.put(self._cache_key(bname, key), prepared)
         return prepared
@@ -453,8 +466,9 @@ class Engine:
         which join-order planner produced the plan, and the routing
         decision the request would get right now and why (``forced`` on a
         static engine, ``warmup``/``measured``/``probe`` under ``auto``)
-        — diagnostics, consumes no routing budget (the actual column
-        executes the pipeline's joins on the host)."""
+        and the static verifier's verdict — diagnostics, consumes no
+        routing budget (the actual column executes the pipeline's joins
+        on the host)."""
         sig = template_signature(qtext)
         decision, prepared = self._route(qtext, sig, counted=False,
                                          peek=True)
@@ -469,6 +483,9 @@ class Engine:
         if prepared.fallback:
             lines.append("note: prepared as an eager fallback "
                          "(device path cannot express this template)")
+        # the static verifier's verdict — always reported here (explain
+        # is the diagnostic surface), whatever the verify_plans knob says
+        lines.append(verify_prepared(prepared, self.ctx.catalog).describe())
         return "\n".join(lines)
 
     def _explain_cardinalities(self, prepared: PreparedQuery, qtext: str,
@@ -487,7 +504,7 @@ class Engine:
             return out
         binding = prepared.template.binding_for(qtext) \
             if prepared.template.rebindable else None
-        if binding is not None and binding.missing:
+        if binding is not None and binding.short_circuit:
             out.append("cardinalities: skipped (constant absent from "
                        "the dictionary; answered from statistics)")
             return out
@@ -513,7 +530,7 @@ class Engine:
             self.metrics.device_fallbacks += 1
         plan = getattr(prepared, "plan", None)
         if (plan is not None and plan.empty) or \
-                (binding is not None and binding.missing):
+                (binding is not None and binding.short_circuit):
             self.metrics.short_circuits += 1
 
     def query(self, qtext: str) -> Result:
@@ -708,7 +725,7 @@ class Engine:
         plan = getattr(prepared, "plan", None)
         if plan is None or plan.empty or not plan.steps:
             return None
-        if binding is not None and binding.missing:
+        if binding is not None and binding.short_circuit:
             return None
         key = (id(prepared),
                tuple(sorted(binding.mapping.items()))

@@ -16,8 +16,12 @@ executable:
   re-bound to new constants by a pure id substitution — no re-parse, no
   re-compile.
 * ``ConstantBinding`` maps placeholder ids to real dictionary ids for one
-  instantiation; a constant absent from the dictionary marks the binding
-  ``missing`` (the statistics-only empty answer, S2RDF §6).
+  instantiation.  A constant absent from the dictionary marks the binding
+  ``missing`` and is bound as ``MISSING_TERM``, which matches no triple.
+  Only where it fills a slot of a *required* triple pattern is the whole
+  answer empty (``short_circuit``: the statistics-only empty answer,
+  S2RDF §6); under OPTIONAL, in one UNION branch or in a FILTER the
+  query runs with it.
 
 Placeholders get ids in a reserved negative band so they can never
 collide with dictionary ids (dense ``[0, n)``), ``UNBOUND`` (-1) or
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, FrozenSet, Iterator, List, Optional, Tuple
 
 from repro_torch.core.algebra import (
     BGP, Distinct, Filter, JoinPair, LeftJoin, Node, OrderBy, Project,
@@ -41,7 +45,7 @@ from repro_torch.core.sparql import MISSING_TERM, _Parser
 __all__ = [
     "template_signature", "extract_constants", "ConstantBinding",
     "QueryTemplate", "substitute_query", "rebind_plan", "node_vars",
-    "PLACEHOLDER_BASE",
+    "required_patterns", "PLACEHOLDER_BASE",
 ]
 
 # Entity constants: IRIs, literals, and prefixed names whose local part
@@ -128,6 +132,10 @@ class ConstantBinding:
 
     mapping: Dict[int, int]
     missing: bool = False   # some constant absent from the dictionary
+    # ... and one of them fills a slot of a required triple pattern
+    # (:func:`required_patterns`): no solution exists, so the answer is
+    # empty without running
+    short_circuit: bool = False
 
     @property
     def empty(self) -> bool:
@@ -171,6 +179,10 @@ class QueryTemplate:
         self.rebindable = not any(
             (not is_var(tp.p)) and int(tp.p) in slot_set
             for tp in iter_patterns(self.query.root))
+        self.required_slots: FrozenSet[int] = frozenset(
+            int(t) for tp in required_patterns(self.query.root)
+            for t in (tp.s, tp.p, tp.o)
+            if not is_var(t) and int(t) in slot_set)
 
     @classmethod
     def concrete(cls, qtext: str, dictionary) -> "QueryTemplate":
@@ -183,6 +195,7 @@ class QueryTemplate:
         self.query = parser.parse_query()
         self.prefixes = parser.prefixes
         self.slot_ids = ()
+        self.required_slots = frozenset()
         self.rebindable = False
         return self
 
@@ -199,14 +212,16 @@ class QueryTemplate:
                 f"query does not match template: {len(consts)} constants "
                 f"vs {len(self.slot_ids)} slots")
         mapping: Dict[int, int] = {}
-        missing = False
+        missing = short_circuit = False
         for slot, text in zip(self.slot_ids, consts):
             tid = resolve_constant(text, self.dictionary, self.prefixes)
             if tid is None:
                 tid = MISSING_TERM
                 missing = True
+                short_circuit |= slot in self.required_slots
             mapping[slot] = tid
-        return ConstantBinding(mapping=mapping, missing=missing)
+        return ConstantBinding(mapping=mapping, missing=missing,
+                               short_circuit=short_circuit)
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +295,22 @@ def iter_patterns(node: Node) -> Iterator[TriplePattern]:
         yield from iter_patterns(node.right)
     elif isinstance(node, (Filter, Distinct, OrderBy, Slice, Project)):
         yield from iter_patterns(node.child)
+
+
+def required_patterns(node: Node) -> Iterator[TriplePattern]:
+    """The triple patterns every solution must match: those of the
+    top-level group, through joins of groups, filters, the left side of
+    an OPTIONAL and the solution modifiers — never an OPTIONAL's right
+    side or a UNION branch (a FILTER holds no pattern)."""
+    if isinstance(node, BGP):
+        yield from node.patterns
+    elif isinstance(node, JoinPair):
+        yield from required_patterns(node.left)
+        yield from required_patterns(node.right)
+    elif isinstance(node, LeftJoin):
+        yield from required_patterns(node.left)
+    elif isinstance(node, (Filter, Distinct, OrderBy, Slice, Project)):
+        yield from required_patterns(node.child)
 
 
 def node_vars(node: Node) -> Tuple[str, ...]:

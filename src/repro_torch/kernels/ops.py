@@ -292,6 +292,7 @@ def semijoin_plan(build_sorted: torch.Tensor,
     if live.any():
         off, n = segs[live, 0], segs[live, 1]
         idx = torch.from_numpy(np.concatenate([off, off + n - 1]))
+        # replint: disable=host-sync -- the plan's one read of the segment ends (a sync a call, to move on the card later)
         ends = torch.index_select(build_sorted, 0,
                                   idx.to(build_sorted.device)).cpu().numpy()
         first[live] = ends[:len(off)]

@@ -17,9 +17,6 @@ deterministic.
     eng = dataset.engine("auto", runtime=cfg)
 
     REPRO_RT_TRACE_SAMPLE=1.0 python -m repro_torch.launch.serve ...
-
-The reference's plan-verifier knob (``verify_plans``) is not here: the
-port has no verifier yet.
 """
 
 from __future__ import annotations
@@ -114,6 +111,14 @@ class RuntimeConfig:
         # first N launches per bucket shape carry first-touch time;
         # discard
         self.tuner_discard = _env_int("REPRO_RT_TUNER_DISCARD", 1)
+
+        ######## Static analysis ########
+        # run the plan/IR verifier (repro_torch.analysis.verifier) over
+        # every prepared artifact inside Engine prepare; violations raise
+        # PlanVerificationError before anything is cached or launched.
+        # Off by default (host work on every plan-cache miss; explain()
+        # reports the verdict either way)
+        self.verify_plans = _env_bool("REPRO_RT_VERIFY_PLANS", False)
 
         ######## Observability ########
         # fraction of requests that carry a full span trace

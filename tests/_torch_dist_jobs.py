@@ -96,6 +96,7 @@ def job_suite(args):
     every instance as one batch (rows, executor slots after it) and
     single, and ``args["dual"]`` again with ``dual_partition=True``."""
     from repro_torch import Dataset
+    from repro_torch.analysis import verify_executor
     from repro_torch.core import distributed as D
     from repro_torch.rdf.workloads import basic_queries
 
@@ -110,10 +111,12 @@ def job_suite(args):
         prepared = eng.prepare(insts[0])
         if hasattr(prepared, "executor"):
             rec["info"] = executor_info(prepared.executor)
+            rec["verify"] = _diags(verify_executor(prepared.executor))
         batched = eng.query_batch(insts)
         rec["batch"] = [_result(r) for r in batched]
         if hasattr(prepared, "executor"):
             rec["batch_info"] = executor_info(prepared.executor)
+            rec["batch_verify"] = _diags(verify_executor(prepared.executor))
         single = [eng.query(q) for q in insts]
         rec["batch_equal"] = all(
             a.cols == b.cols and np.array_equal(a.data, b.data)
@@ -124,9 +127,10 @@ def job_suite(args):
         q = basic_queries(ds.schema, seed=args["seed"])[name][0]
         D.reset_exchanges()
         res = dual.query(q)
+        ex = dual.prepare(q).executor
         out["dual"][name] = dict(
             _result(res), exchanges=D.exchanges["all_to_all"],
-            info=executor_info(dual.prepare(q).executor))
+            info=executor_info(ex), verify=_diags(verify_executor(ex)))
     out["fallbacks"] = eng.metrics.device_fallbacks + \
         dual.metrics.device_fallbacks
     return out
@@ -466,7 +470,41 @@ def job_padding(args):
             "batches": m["batches"], "shapes": shapes, "rows": rows}
 
 
-JOBS = {"suite": job_suite, "queries": job_queries,
+def _diags(report):
+    """A verification report as plain data: its diagnostics and checks."""
+    return ([(d.rule, d.severity, d.message, d.location)
+             for d in report.diagnostics], tuple(report.checks))
+
+
+def job_verify(args):
+    """The port's verifier over the distributed engine's prepared forms:
+    ``args["queries"]`` over ``args["triples"]`` at each τ and planner,
+    and the first instance of every WatDiv basic template; each report
+    as plain data, keyed ``"tau|planner|query"`` / ``"planner|name"``."""
+    from repro_torch import Dataset
+    from repro_torch.analysis import verify_prepared
+    from repro_torch.rdf.workloads import basic_queries
+
+    out = {"corpus": {}, "watdiv": {}}
+    triples = [tuple(t) for t in args["triples"]]
+    for tau in args["taus"]:
+        ds = Dataset.from_triples(triples, threshold=tau, device="cpu")
+        for planner in args["planners"]:
+            eng = ds.engine("distributed", planner=planner)
+            for q in args["queries"]:
+                out["corpus"][f"{tau}|{planner}|{q}"] = _diags(
+                    verify_prepared(eng.prepare(q), ds.catalog))
+    ds = Dataset.watdiv(scale=args["scale"], seed=args["seed"],
+                        threshold=1.0, device="cpu")
+    for planner in args["planners"]:
+        eng = ds.engine("distributed", planner=planner)
+        for name, (q,) in basic_queries(ds.schema, n_instances=1).items():
+            out["watdiv"][f"{planner}|{name}"] = _diags(
+                verify_prepared(eng.prepare(q), ds.catalog))
+    return out
+
+
+JOBS = {"suite": job_suite, "queries": job_queries, "verify": job_verify,
         "repartition": job_repartition, "build": job_build,
         "isolation": job_isolation, "serve": job_serve,
         "auto_routing": job_auto_routing,

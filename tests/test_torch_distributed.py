@@ -330,6 +330,12 @@ def test_star_templates_make_no_exchange(suites):
     assert all(runs[n]["exchanges"] > 0 for n in ("L1", "F1", "C1"))
 
 
+def _diags(report):
+    """A verification report as plain data: its diagnostics and checks."""
+    return ([(d.rule, d.severity, d.message, d.location)
+             for d in report.diagnostics], tuple(report.checks))
+
+
 class _CapSlots:
     """The port executor's capacity-slot attributes over the reference's
     compile of the same query, which is what ``verify_executor`` reads
@@ -362,12 +368,19 @@ def test_executors_pass_verify_executor(suites):
         assert info["describe"] == ref_ex.core.describe(), name
         report = verify_executor(_CapSlots(ref_ex, info))
         assert report.ok, (name, report)
+        # the port's own verifier, run on every rank on the port's
+        # executor, reports what the reference's reports
+        for rank in port:
+            assert rank["templates"][name]["verify"] == \
+                _diags(report), name
         checked += 1
     for name in DUAL:
         info = port[0]["dual"][name]["info"]
         ref_ex = jit.prepare(basic_queries(rds.schema, seed=SEED)[name][0]) \
             .executor
-        assert verify_executor(_CapSlots(ref_ex, info)).ok
+        report = verify_executor(_CapSlots(ref_ex, info))
+        assert report.ok
+        assert port[0]["dual"][name]["verify"] == _diags(report), name
     assert checked == 20
 
 
@@ -387,6 +400,9 @@ def test_batched_executors_pass_verify_executor(suites):
             continue
         report = verify_executor(_CapSlots(ref_ex, info))
         assert report.ok, (name, report)
+        for rank in port:
+            assert rank["templates"][name]["batch_verify"] == \
+                _diags(report), name
         checked += 1
     assert checked == 20
 

@@ -315,8 +315,8 @@ def test_basic_suite_estimate_matches_jit(watdiv):
 
 
 def _explain_lines(text):
-    """explain() less its backend line and the reference's verifier
-    line (the port has no plan verifier yet)."""
+    """explain() less its backend line and the verifier's verdict line
+    (both compared on their own)."""
     return [ln for ln in text.splitlines()
             if not ln.startswith(("backend:", "verifier", "verify"))]
 
@@ -335,6 +335,8 @@ def test_explain_matches_reference(watdiv, planner):
         got, want = eng.explain(qtext), ref_eng.explain(qtext)
         assert _explain_lines(got) == _explain_lines(want)[:len(
             _explain_lines(got))], qtext
-        assert got.splitlines()[-1] == "backend: torch (forced)"
+        assert got.splitlines()[-2] == "backend: torch (forced)"
+        # the verifier's verdict, last, in the reference's wording
+        assert got.splitlines()[-1] == want.splitlines()[-1], qtext
     star = eng.explain(basic_queries(rds.schema, seed=0)["S1"][0])
     assert "est=" in star and "actual=" in star

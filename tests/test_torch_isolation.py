@@ -111,6 +111,28 @@ print("BAD", bad)
 """
 
 
+_ANALYSIS_CHILD = r"""
+import sys
+import repro_torch.analysis
+from repro_torch import Dataset, Engine, RuntimeConfig
+from repro_torch.analysis import lint_paths, verify_prepared
+from repro_torch.rdf.workloads import basic_queries
+ds = Dataset.watdiv(scale=0.05, seed=1, threshold=0.25, device="cpu")
+eng = Engine(ds, runtime=RuntimeConfig(verify_plans=True), device="cpu")
+qs = basic_queries(ds.schema, seed=1)
+rows = sum(len(eng.query(q[0])) for q in qs.values())
+ok = all(verify_prepared(eng.prepare(q[0]), ds.catalog).ok
+         for q in qs.values())
+text = eng.explain(qs["S1"][0])
+findings = lint_paths([sys.argv[1]])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows, "OK", ok, "VERDICT", "verify: ok" in text,
+      "FINDINGS", len(findings))
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -158,6 +180,31 @@ def test_host_engine_and_auto_import_neither_jax_nor_repro():
     assert "BAD []" in out.stdout, out.stdout
     assert "ROUTED ['eager', 'torch'] TEXT True" in out.stdout, out.stdout
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_analysis_imports_neither_jax_nor_repro():
+    """The plan verifier behind an engine's ``verify_plans``, its verdict
+    in ``explain()``, and the lint over the port's own sources, all
+    through the port."""
+    out = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD,
+                          str(SRC / "repro_torch")], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "OK True VERDICT True FINDINGS 0" in out.stdout, out.stdout
+    assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_tools_and_examples_of_the_port_import_neither():
+    """The lint's command line and the example twins stand on the port
+    alone, as its sources do."""
+    pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
+    files = [ROOT / "tools" / "replint_torch.py",
+             ROOT / "examples" / "quickstart_torch.py",
+             ROOT / "examples" / "serve_sparql_torch.py"]
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in pat.finditer(f.read_text())]
+    assert hits == []
 
 
 def test_distributed_engine_imports_neither_jax_nor_repro(tmp_path):

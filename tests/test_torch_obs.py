@@ -34,10 +34,9 @@ PORT = {"LogHistogram": LogHistogram, "Tracer": Tracer,
         "RuntimeConfig": RuntimeConfig, "ServerMetrics": ServerMetrics}
 REF = {"LogHistogram": RLogHistogram, "Tracer": RTracer,
        "TraceContext": RTraceContext, "FlightRecorder": RFlightRecorder,
-       # the reference's plan verifier is off here: its spans are not
-       # part of the port
-       "RuntimeConfig": lambda **kw: RRuntimeConfig(verify_plans=False,
-                                                    **kw),
+       # both packages' plan verifiers follow REPRO_RT_VERIFY_PLANS, so
+       # their "verify" spans and stage histograms are compared too
+       "RuntimeConfig": RRuntimeConfig,
        "ServerMetrics": RServerMetrics}
 
 

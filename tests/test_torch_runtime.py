@@ -130,8 +130,8 @@ def test_config_snapshot_equals_reference_on_shared_keys():
     r = RRuntimeConfig(batch_shapes=(1, 2)).snapshot()
     assert "clock" not in t and t["batch_shapes"] == [1, 2]
     json.dumps(t)                                # must not raise
-    # the plan verifier's knob is the only one the port does not have
-    assert set(r) - set(t) == {"verify_plans"} and set(t) <= set(r)
+    # the port has every knob of the reference, the plan verifier's too
+    assert set(r) == set(t)
     assert {k: r[k] for k in t} == t
 
 
