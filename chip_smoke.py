@@ -157,19 +157,40 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples/quickstart_torch.py`` (its two ``True`` lines) and
    ``examples/serve_sparql_torch.py`` (its agreement line) as
    subprocesses on the card, each exiting 0.
+10. the LM substrate's serving path (``repro_torch.models``), after 6b,
+   with the kernels' launch counts reset before and read after (the
+   path launches none of them; the count is printed).  10a: qwen1.5-0.5b,
+   granite-moe-1b-a400m, mamba2-370m and whisper-small at full width,
+   one config at a time, params from the port's ``init`` on the card
+   (seed ``--seed``), freed before the next.  In float32: teacher-forced
+   ``forward`` equal to 256 ``decode`` steps at B = 2 (whisper:
+   ``decode_train`` against ``decode_step`` over caches of one encoder
+   output; granite-moe at a capacity no routing exceeds,
+   ``lm_no_drops``; mamba2's forward at an SSD chunk of 16,
+   ``LM_EXACT_SSM_CHUNK``), and ``prefill`` at B = 1 equal on the card
+   and on the CPU (mamba2 at its published chunk).  At the published
+   bf16: ``prefill`` at B = 4 × 1,024 tokens and 32 greedy decode steps
+   at B = 4 from empty caches of 1,024 positions (``lm_greedy``, as the
+   launcher decodes), on CUDA events, every logit finite, with the peak
+   memory, the param bytes and each one's bound.  10b: the other six
+   architectures at reduced size, prefill and 4 decode steps in
+   float32, card equal to CPU.  10c: ``python -m repro_torch.launch.serve
+   --mode lm`` as a subprocess (exit 0, its tok/s line).
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
 over the main path, one with the batched probe's (phase 2's check, the
 served step's times, each template's launches per served batch), one
 with phase 7's numbers, one with phase 8's, one with phase 9's, one
-with the kernels' numbers, then the card's name and power limit, then
-``{"ok": true, "device": {...}}`` as the last line.
+with phase 10's (``{"lm": ...}``), one with the kernels' numbers, then
+the card's name and power limit, then ``{"ok": true, "device": {...}}``
+as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -3453,6 +3474,323 @@ def phase_analysis_small(ds, queries, ops, Dataset, here: str) -> dict:
             "serve_twin_s": round(serve_s, 1), "serve_twin": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM substrate's serving path
+# ---------------------------------------------------------------------------
+
+#: the configs phase 10a runs at full width, each with its decode ==
+#: forward tolerance (the reference's own: 2e-3 in its qwen test, 5e-3
+#: in its hybrid one; the SSD scan takes the hybrid's)
+LM_FULL = {"qwen1.5-0.5b": 2e-3, "granite-moe-1b-a400m": 2e-3,
+           "mamba2-370m": 5e-3, "whisper-small": 2e-3}
+#: the other six, at their reduced (CPU-test) size
+LM_REDUCED = {"gemma3-12b": 2e-3, "mistral-nemo-12b": 2e-3,
+              "granite-3-2b": 2e-3, "deepseek-moe-16b": 2e-3,
+              "jamba-1.5-large-398b": 5e-3, "llava-next-34b": 2e-3}
+LM_EXACT_BATCH, LM_EXACT_SEQ = 2, 256       # a multiple of mamba2's chunk
+#: decode is held against a forward whose SSD chunk is at most this: at
+#: mamba2's published 256 a chunk's cumulative log-decay reaches about
+#: -2,900, where a float32 step is 2.4e-4, and the chunked forward
+#: itself departs from the exact recurrence by up to 5.35e-3 (PERF.md
+#: section 7); the published chunk is held card against CPU and timed
+LM_EXACT_SSM_CHUNK = 16
+#: card against CPU: prefill at B = 1 over this many tokens (mamba2's
+#: sequence must be a whole number of its 256-token chunks)
+LM_CPU_SEQ = {"mamba2-370m": 256}
+LM_CPU_SEQ_DEFAULT = 64
+LM_BATCH, LM_PREFILL_SEQ, LM_DECODE_TOKENS, LM_S_MAX = 4, 1024, 32, 1024
+LM_REDUCED_STEPS = 4
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def lm_inputs(cfg, batch: int, seq: int, gen, device) -> dict:
+    """Tokens uniform in the vocabulary (and stub frames or patches where
+    the family takes them) from ``gen`` on ``device``."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                                   device=device, dtype=torch.int32)}
+    if cfg.enc_dec:
+        out["frames"] = torch.randn((batch, cfg.n_frames, cfg.d_model),
+                                    generator=gen, device=device) * 0.5
+    if cfg.vlm:
+        out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                     generator=gen, device=device) * 0.5
+    return out
+
+
+def lm_caches(m, params) -> dict:
+    """Empty caches for ``LM_BATCH`` sequences of ``LM_S_MAX`` positions
+    on the card (the encoder-decoder's cross K/V from a zero encoder
+    output, as ``Model.init_caches`` makes them)."""
+    return m.init_caches(params if m.cfg.enc_dec else None, LM_BATCH,
+                         LM_S_MAX, device="cuda")
+
+
+def lm_greedy(m, params, caches, n: int) -> torch.Tensor:
+    """``n`` greedy decode steps at ``LM_BATCH`` from token 0 at position
+    0, as the launcher decodes; a flag on the card, true if every logit
+    was finite."""
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device="cuda")
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    for pos in range(n):
+        lg, caches = m.decode(params, caches, tok, pos)
+        ok &= torch.isfinite(lg.float()).all()
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    return ok
+
+
+def lm_close(got: torch.Tensor, want: torch.Tensor, tol: float,
+             what: str) -> dict:
+    """|got - want| <= tol + tol·|want| everywhere (numpy's allclose);
+    returns the largest absolute difference and the largest share of
+    that bound used."""
+    got, want = got.float(), want.float().to(got.device)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    share = float((diff / (tol + tol * want.abs())).max())
+    if share > 1.0:
+        raise AssertionError(f"{what}: max abs diff {float(diff.max())} "
+                             f"beyond rtol/atol {tol}")
+    return {"max_abs_err": float(diff.max()), "share_of_tol": share}
+
+
+def lm_no_drops(cfg):
+    """``cfg`` with an expert capacity no routing can exceed (a token's k
+    experts are distinct, so an expert takes at most T of the T·k
+    assignments: capacity_factor E/k gives C = T).  With the published
+    factor a forward over B·S tokens drops assignments past capacity
+    that one-token decode steps keep, so the two differ by design."""
+    m = cfg.moe
+    if not m.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def lm_decode_vs_forward(cfg, params, tol: float, gen) -> dict:
+    """Teacher-forced forward against step-by-step decode over
+    ``LM_EXACT_SEQ`` positions (an MoE config at :func:`lm_no_drops`'s
+    capacity, the forward's SSD chunk at most ``LM_EXACT_SSM_CHUNK``);
+    for the encoder-decoder, ``decode_train`` against ``decode_step``
+    over caches of one encoder output."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.api import Model
+    cfg = lm_no_drops(cfg)
+    m = Model(cfg)
+    dev = torch.device("cuda")
+    b, s = LM_EXACT_BATCH, LM_EXACT_SEQ
+    inp = lm_inputs(cfg, b, s, gen, dev)
+    tokens = inp["tokens"]
+    if cfg.enc_dec:
+        enc_out = encdec.encode(params, inp["frames"], cfg)
+        full = encdec.decode_train(params, tokens, enc_out, cfg)
+        caches = encdec.init_caches(params, cfg, b, s, enc_out=enc_out,
+                                    device=dev)
+    else:
+        full = transformer.forward(params, tokens, dataclasses.replace(
+            cfg, ssm_chunk=min(cfg.ssm_chunk, LM_EXACT_SSM_CHUNK)))
+        caches = m.init_caches(None, b, s, device=dev)
+    steps = []
+    for t in range(s):
+        lg, caches = m.decode(params, caches, tokens[:, t:t + 1], t)
+        steps.append(lg)
+    return lm_close(torch.cat(steps, 1), full, tol,
+                    f"{cfg.name}: decode against forward")
+
+
+def lm_card_vs_cpu(m, cfg, params, tol: float, gen) -> dict:
+    """``prefill`` at B = 1 on the card and on the CPU, from the same
+    parameters and inputs."""
+    s = LM_CPU_SEQ.get(cfg.name, LM_CPU_SEQ_DEFAULT)
+    inp = lm_inputs(cfg, 1, s, gen, torch.device("cuda"))
+    card = m.prefill(params, inp)
+    t = time.perf_counter()
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    cpu = m.prefill(cpu_params, tree_map(lambda x: x.cpu(), inp))
+    cpu_s = time.perf_counter() - t
+    del cpu_params
+    return dict(lm_close(card, cpu, tol,
+                         f"{cfg.name}: prefill, card against CPU"),
+                seq=s, cpu_s=round(cpu_s, 2))
+
+
+def lm_timed(m, cfg, params, gen) -> dict:
+    """The published dtype: prefill at (``LM_BATCH``, ``LM_PREFILL_SEQ``)
+    and ``LM_DECODE_TOKENS`` steps of :func:`lm_greedy` from empty
+    caches, on CUDA events; every logit finite; the peak device
+    memory."""
+    from repro_torch.models.api import model_flops
+    from repro_torch.models.config import ShapeCell
+    dev = torch.device("cuda")
+    b = LM_BATCH
+    inp = lm_inputs(cfg, b, LM_PREFILL_SEQ, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    m.prefill(params, inp)                                   # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        logits = m.prefill(params, inp)
+        finite &= torch.isfinite(logits.float()).all()
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end) / reps
+    lm_greedy(m, params, lm_caches(m, params), 4)            # warm
+    caches = lm_caches(m, params)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start.record()
+    finite &= lm_greedy(m, params, caches, LM_DECODE_TOKENS)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    decode_ms = start.elapsed_time(end)
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: non-finite logits at "
+                             f"{cfg.dtype}")
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    flops = model_flops(cfg, ShapeCell("prefill", LM_PREFILL_SEQ, b,
+                                       "prefill"))
+    return {
+        "prefill_ms": round(prefill_ms, 4),
+        "prefill_bound_ms": round(flops / BF16_OPS_PER_S * 1e3, 4),
+        "decode_ms_per_token": round(decode_ms / LM_DECODE_TOKENS, 4),
+        "decode_tok_per_s": round(LM_DECODE_TOKENS * b / decode_ms * 1e3, 1),
+        "decode_host_s": round(host_s, 4),
+        # one read of the fp32 params a token (the dtype policy casts
+        # each weight where it is used), and of a bf16 copy
+        "decode_bound_ms_fp32_weights": round(
+            param_bytes / HBM_BYTES_PER_S * 1e3, 4),
+        "decode_bound_ms_bf16_weights": round(
+            param_bytes / 2 / HBM_BYTES_PER_S * 1e3, 4),
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "param_bytes": param_bytes}
+
+
+def lm_free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_full_width(name: str, tol: float, seed: int) -> dict:
+    """10a for one config: float32 params from the port's ``init`` on the
+    card, decode against forward and card against CPU; then the same
+    seed's params at the published dtype, timed."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import Model, total_params
+    cfg = get(name)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"tol": tol, "params": total_params(cfg)}
+    t0 = time.perf_counter()
+    params = Model(cfg32).init(seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.inference_mode():
+        out["decode_vs_forward"] = lm_decode_vs_forward(cfg32, params, tol,
+                                                        gen)
+        out["card_vs_cpu"] = lm_card_vs_cpu(Model(cfg32), cfg32, params, tol,
+                                            gen)
+    del params
+    lm_free()
+    out["exact_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    m = Model(cfg)
+    params = m.init(seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    with torch.inference_mode():
+        out.update(lm_timed(m, cfg, params, gen))
+    del params
+    lm_free()
+    out["timed_s"] = round(time.perf_counter() - t0, 1)
+    dvf, cvc = out["decode_vs_forward"], out["card_vs_cpu"]
+    log(f"  {name} ({out['params'] / 1e6:.1f} M params, "
+        f"{out['param_bytes'] / 1e9:.2f} GB): decode == forward over "
+        f"{LM_EXACT_SEQ} positions (max abs err {dvf['max_abs_err']:.2e}, "
+        f"{dvf['share_of_tol']:.2f} of rtol/atol {tol}); card == CPU "
+        f"prefill at S {cvc['seq']} (max abs err {cvc['max_abs_err']:.2e}, "
+        f"{cvc['share_of_tol']:.2f} of it; CPU {cvc['cpu_s']} s); float32 "
+        f"half {out['exact_s']} s; {cfg.dtype}: prefill "
+        f"{LM_BATCH}×{LM_PREFILL_SEQ} {out['prefill_ms']} ms (bound "
+        f"{out['prefill_bound_ms']}), decode {out['decode_ms_per_token']} "
+        f"ms a token = {out['decode_tok_per_s']} tok/s (bounds "
+        f"{out['decode_bound_ms_bf16_weights']} / "
+        f"{out['decode_bound_ms_fp32_weights']} ms), peak "
+        f"{out['peak_gib']} GiB; {out['timed_s']} s")
+    return out
+
+
+def lm_reduced(name: str, tol: float, seed: int) -> float:
+    """10b for one config at reduced size, float32: prefill and
+    ``LM_REDUCED_STEPS`` decode steps on the card equal to the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.api import Model
+    cfg = get_reduced(name, dtype="float32")
+    m = Model(cfg)
+    cpu_p = m.init(seed, device="cpu")
+    card_p = tree_map(lambda x: x.cuda(), cpu_p)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    inp = lm_inputs(cfg, 2, 16, gen, torch.device("cpu"))
+    err = lm_close(m.prefill(card_p, tree_map(lambda x: x.cuda(), inp)),
+                   m.prefill(cpu_p, inp), tol,
+                   f"{name}: reduced prefill")["max_abs_err"]
+    caches = {d: m.init_caches(p if cfg.enc_dec else None, 2, 16, device=d)
+              for d, p in (("cuda", card_p), ("cpu", cpu_p))}
+    tok = inp["tokens"][:, :1]
+    for pos in range(LM_REDUCED_STEPS):
+        card, caches["cuda"] = m.decode(card_p, caches["cuda"], tok.cuda(),
+                                        pos)
+        cpu, caches["cpu"] = m.decode(cpu_p, caches["cpu"], tok, pos)
+        err = max(err, lm_close(card, cpu, tol, f"{name}: reduced decode "
+                                f"step {pos}")["max_abs_err"])
+        tok = torch.argmax(cpu, dim=-1).to(torch.int32)
+    return err
+
+
+def phase_lm(here: str, ops, seed: int) -> dict:
+    """Phase 10: the LM serving path, with the kernels' launch counts
+    reset before and read after (the path launches none of them)."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    out = {"full_width": {}, "reduced": {}}
+    for name, tol in LM_FULL.items():
+        out["full_width"][name] = lm_full_width(name, tol, seed)
+    with torch.inference_mode():
+        for name, tol in LM_REDUCED.items():
+            out["reduced"][name] = lm_reduced(name, tol, seed)
+    log(f"  reduced, card == CPU (prefill and {LM_REDUCED_STEPS} decode "
+        f"steps, float32), max abs err: {out['reduced']}")
+    t = time.perf_counter()
+    served = run_example(here, "-m", "repro_torch.launch.serve",
+                         "--mode", "lm", "--arch", "qwen1.5-0.5b")
+    line = [ln for ln in served.splitlines() if ln.endswith(" tok/s")]
+    if len(line) != 1 or "decoded 32 tokens × batch 4" not in line[0]:
+        raise AssertionError(f"launcher --mode lm:\n{served[-2000:]}")
+    out["launcher"] = {"line": line[0],
+                       "s": round(time.perf_counter() - t, 1)}
+    log(f"  launcher --mode lm: exit 0 in {out['launcher']['s']} s: "
+        f"{line[0]}")
+    out["launches"] = dict(ops.launches)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"  kernel launches over phase 10: {out['launches']}; "
+        f"{out['seconds']} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=340.0)
@@ -3591,6 +3929,8 @@ def main() -> int:
     stage(f"[6b] the distributed engine, two ranks sharing the card over "
           f"gloo, scale {args.compare_scale}")
     ranks = phase_two_ranks(args, store, queries_file, here)
+    stage("[10] the LM serving path")
+    lm = phase_lm(here, ops, args.seed)
     stage("[end]")
     print(json.dumps({"phase6": {"one_rank": one_rank, "two_ranks": {
         "backend": "gloo", "ranks": 2, "scale": args.compare_scale,
@@ -3608,6 +3948,7 @@ def main() -> int:
     print(json.dumps({"phase7": serve}), flush=True)
     print(json.dumps({"phase8": adaptive}), flush=True)
     print(json.dumps({"phase9": analysis9}), flush=True)
+    print(json.dumps({"lm": lm}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

@@ -1,0 +1,12 @@
+"""qwen1.5-0.5b [dense] — 24L d1024 16H (kv=16, i.e. MHA) ff2816
+vocab 151936, QKV bias.  [hf:Qwen/Qwen1.5-0.5B]"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b", family="dense",
+    n_layers=24, d_model=1024, n_heads=16, n_kv=16, d_ff=2816,
+    vocab=151936, qkv_bias=True, rope_theta=1e6,
+    group_pattern=(("attn", "dense"),),
+    tie_embeddings=True,
+)

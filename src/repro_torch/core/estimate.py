@@ -255,12 +255,16 @@ def actual_cardinalities(steps: Sequence, catalog) -> Optional[List[int]]:
     """Measured intermediate cardinalities of a flat BGP pipeline: scan
     and join the steps left-to-right on the host, recording each
     intermediate row count (``Engine.explain``'s estimated-vs-actual
-    column).  Diagnostics only — runs the actual joins."""
-    from repro_torch.core.executor import natural_join, scan_step
+    column).  Diagnostics only — builds every join but the last, whose
+    rows it only counts."""
+    from repro_torch.core.executor import join_count, natural_join, scan_step
     out: List[int] = []
     acc = None
-    for step in steps:
+    for i, step in enumerate(steps):
         b = scan_step(step, catalog)
+        if acc is not None and i == len(steps) - 1:
+            out.append(join_count(acc, b))
+            break
         acc = b if acc is None else natural_join(acc, b)
         out.append(int(len(acc.data)))
     return out

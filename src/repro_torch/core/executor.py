@@ -41,7 +41,7 @@ from repro_torch.core.stats import Catalog
 from repro_torch.rdf.dictionary import UNBOUND
 
 __all__ = ["Bindings", "execute", "execute_plan", "scan_step", "natural_join",
-           "apply_spine_host", "stable_unique_rows", "order_rows"]
+           "join_count", "apply_spine_host", "stable_unique_rows", "order_rows"]
 
 
 @dataclass
@@ -228,6 +228,21 @@ def natural_join(a: Bindings, b: Bindings,
     if return_provenance:
         return out, a_idx
     return out
+
+
+def join_count(a: Bindings, b: Bindings) -> int:
+    """``len(natural_join(a, b))`` without building the join when at most
+    two variables are shared: the sum over ``a``'s packed keys of their
+    matches in ``b`` (a cardinality report's last step)."""
+    shared = [c for c in a.cols if c in b.cols]
+    if len(shared) > 2:
+        return len(natural_join(a, b))
+    if not shared:
+        return len(a) * len(b)
+    ka = _pack_keys(a, shared, null_code=-3)
+    kb = np.sort(_pack_keys(b, shared, null_code=-5))
+    return int((np.searchsorted(kb, ka, side="right")
+                - np.searchsorted(kb, ka, side="left")).sum())
 
 
 def left_outer_join(a: Bindings, b: Bindings,

@@ -1,4 +1,5 @@
-"""Serving launcher — SPARQL query serving (the paper's kind) on the card.
+"""Serving launcher — SPARQL query serving (the paper's kind), or LM
+decode serving for the assigned architectures, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --scale 1.0
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -7,8 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --scale 0.1 --trace-sample 1.0 --trace-dump traces.jsonl \\
         --metrics-out metrics.prom
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --arch qwen1.5-0.5b
 
-Boots a dataset (from ``--store`` when it holds a store, else the
+``--mode sparql`` (the default) boots a dataset (from ``--store`` when it holds a store, else the
 WatDiv generator at ``--scale``, τ = 0.25, saved to ``--store`` when
 given), starts a :class:`~repro_torch.serve.SparqlServer` and serves the
 selectivity-testing queries ``--passes`` times.  ``--device`` defaults
@@ -22,6 +25,11 @@ prints its decisions), or ``distributed``, which serves over a
 ``torch.distributed`` process group: under ``torchrun`` (``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` set)
 every rank joins the launched world; otherwise the launcher opens a
 world of one (NCCL on the card, gloo on the CPU).
+
+``--mode lm`` serves ``--arch`` (reduced to its CPU-test size, random
+weights from seed 0): empty static caches of ``--seq`` positions for
+``--batch`` sequences, then ``--tokens`` greedy decode steps from
+position 0, and one line with the tokens per second.
 """
 
 from __future__ import annotations
@@ -142,8 +150,37 @@ def serve_sparql(args) -> None:
             dist.destroy_process_group()
 
 
+def serve_lm(args) -> None:
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.device import resolve_device
+    from repro_torch.models.api import Model
+
+    device = resolve_device(args.device)
+    cfg = get_reduced(args.arch)
+    model = Model(cfg)
+    B, S = args.batch, args.seq
+    with torch.inference_mode():
+        params = model.init(0, device)
+        caches = model.init_caches(params if cfg.enc_dec else None, B, S,
+                                   device)
+        tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        for pos in range(args.tokens):
+            logits, caches = model.decode(params, caches, tok, pos)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    print(f"{cfg.name} (reduced): decoded {args.tokens} tokens × batch {B} "
+          f"in {dt:.2f}s = {args.tokens * B / dt:.0f} tok/s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="sparql", choices=["sparql", "lm"],
+                    help="serve SPARQL queries, or decode an LM (lm)")
     ap.add_argument("--backend", default="torch",
                     choices=["eager", "torch", "auto", "distributed"],
                     help="the host numpy engine, one device, per-template "
@@ -152,8 +189,8 @@ def main() -> None:
                          "process group (a world of one unless torchrun "
                          "set one up)")
     ap.add_argument("--device", default="cuda",
-                    help="device the engine runs on (default cuda; cpu "
-                         "to run without a card)")
+                    help="device the engine or the model runs on "
+                         "(default cuda; cpu to run without a card)")
     ap.add_argument("--scale", type=float, default=0.5)
     ap.add_argument("--planner", default=None,
                     choices=["greedy", "estimate"],
@@ -196,7 +233,19 @@ def main() -> None:
     ap.add_argument("--eager-load", action="store_true",
                     help="materialize every table at boot instead of lazy "
                          "memory-mapping")
-    serve_sparql(ap.parse_args())
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="lm: the architecture (repro_torch.configs)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lm: sequences decoded together")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="lm: static cache length")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="lm: greedy decode steps")
+    args = ap.parse_args()
+    if args.mode == "sparql":
+        serve_sparql(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -104,6 +104,7 @@ def test_joins_and_union_match_reference(seed):
         t_out, t_prov = TX.natural_join(ta, tb, return_provenance=True)
         same_bindings(r_out, t_out, (seed, acols, bcols))
         np.testing.assert_array_equal(t_prov, r_prov)
+        assert TX.join_count(ta, tb) == len(r_out), (seed, acols, bcols)
         expr = RCmp("!=", acols[0], bcols[-1]), TCmp("!=", acols[0],
                                                     bcols[-1])
         for re_, te in ((None, None), expr):

@@ -133,6 +133,32 @@ print("BAD", bad)
 """
 
 
+_LM_CHILD = r"""
+import sys
+import torch
+import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+from repro_torch.configs import get_reduced
+from repro_torch.models.api import Model
+rows = 0
+for name in ("qwen1.5-0.5b", "jamba-1.5-large-398b", "whisper-small"):
+    cfg = get_reduced(name)
+    m = Model(cfg)
+    params = m.init(0, device="cpu")
+    caches = m.init_caches(params if cfg.enc_dec else None, 2, 16,
+                           device="cpu")
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    with torch.no_grad():
+        for pos in range(3):
+            logits, caches = m.decode(params, caches, tok, pos)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    rows += int(torch.isfinite(logits.float()).all()) * logits.shape[-1]
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows)
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -195,11 +221,34 @@ def test_analysis_imports_neither_jax_nor_repro():
     assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
 
 
+def test_lm_serving_path_imports_neither_jax_nor_repro():
+    """The configs, the models and the launcher module, and a reduced
+    decode of a dense, a hybrid and an encoder-decoder architecture on
+    the CPU, all through the port."""
+    out = subprocess.run([sys.executable, "-c", _LM_CHILD], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "ROWS 1536" in out.stdout, out.stdout
+
+
+def test_lm_launcher_decodes_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
+         "--device", "cpu", "--arch", "qwen1.5-0.5b", "--tokens", "4"],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"^qwen1\.5-0\.5b \(reduced\): decoded 4 tokens × "
+                     r"batch 4 in [0-9.]+s = [0-9]+ tok/s$", out.stdout,
+                     re.M), out.stdout
+
+
 def test_tools_and_examples_of_the_port_import_neither():
     """The lint's command line and the example twins stand on the port
     alone, as its sources do."""
     pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
     files = [ROOT / "tools" / "replint_torch.py",
+             ROOT / "tools" / "lm_profile.py",
              ROOT / "examples" / "quickstart_torch.py",
              ROOT / "examples" / "serve_sparql_torch.py"]
     hits = [f"{f}: {m.group(0).strip()}" for f in files
@@ -242,6 +291,33 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         ds.engine(device="cuda")
     assert ds.engine().device.type == "cpu"
     assert build.SOURCES  # the kernels exist, built only on first use
+
+
+def test_models_need_cuda_unless_asked_for_cpu():
+    """``Model.init``, ``Model.init_caches`` and ``dummy_batch`` mean
+    ``"cuda"`` when no device is named, and raise without a card; the
+    launcher's ``--mode lm`` does too."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeCell
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for name in ("qwen1.5-0.5b", "whisper-small"):
+        m = Model(get_reduced(name))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            m.init(0)
+        params = m.init(0, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            m.init_caches(params, 2, 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            m.dummy_batch(ShapeCell("p", 8, 2, "prefill"), 0)
+        assert m.init_caches(params, 2, 8, device="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
+         "--tokens", "1"], env=_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "tok/s" not in out.stdout
 
 
 def test_executor_and_context_need_cuda_unless_asked_for_cpu():
