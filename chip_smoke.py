@@ -95,7 +95,8 @@ Phases (any failure exits non-zero and prints no result line):
    32-row step of each build form, against 32 single launches, the
    plain version and a batched ``torch.searchsorted`` pair; the suite served at trace rates 0, 1.0
    and 0.1 in turns on one engine (``TRACE_NO_CARDINALITY`` with the
-   cardinality report off, then one request each with it on, timed),
+   cardinality report off, then one request of each of
+   ``REPORT_AT_SCALE`` with it on, timed: C1's is timed in 7b),
    traced results equal to untraced ones, the Chrome dump read by
    ``tools/trace_inspect.py``, a ``device.launch`` span on every traced
    request and cardinalities on every flat BGP's; the estimate planner
@@ -176,13 +177,36 @@ Phases (any failure exits non-zero and prints no result line):
    architectures at reduced size, prefill and 4 decode steps in
    float32, card equal to CPU.  10c: ``python -m repro_torch.launch.serve
    --mode lm`` as a subprocess (exit 0, its tok/s line).
+11. the LM substrate's training path (``repro_torch.train``), after
+   phase 10, with the kernels' launch counts reset before and read
+   after (all must read 0).  11c's subprocesses start first and run in
+   a thread (``Subprocesses``) while the float32 checks do:
+   ``python -m repro_torch.launch.train`` on the full qwen1.5-0.5b for
+   20 steps with a checkpoint at step 10, again for 25 (its resume line
+   from step 10 required), then ``examples/train_lm_torch.py``, each
+   exiting 0.  11a's float32 half, for the four configs of 10a at full
+   width: ``loss_and_grads`` at B = 1 (S = 64; mamba2 256) on the card
+   with TF32 off and on the CPU, ‖g_card − g_cpu‖ / ‖g_cpu‖ at most
+   ``TRAIN_GRAD_RATIO`` or, past it, ``TRAIN_COND_FACTOR`` times the
+   CPU's own movement under a ``TRAIN_PERTURB`` perturbation of the
+   params; one step with ``accum_steps=2`` equal to one with 1 on the
+   same batch.  11b: the six other configs reduced, the same gradient
+   check.  Then 11a's half at the published bf16, alone on the card:
+   20 steps whose loss must fall (remat off: ``TRAIN_CUTS``), the
+   step at 4 × 1,024 tokens with remat on and off (the median of 5
+   after 2 on CUDA events, forward + backward and optimizer apart,
+   tokens/s, the share of its bound, peak memory, lower with remat on),
+   and on qwen a checkpoint saved at step 3, restored into a fresh
+   state and 2 more steps equal to the uninterrupted run under
+   deterministic algorithms.
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
 over the main path, one with the batched probe's (phase 2's check, the
 served step's times, each template's launches per served batch), one
 with phase 7's numbers, one with phase 8's, one with phase 9's, one
-with phase 10's (``{"lm": ...}``), one with the kernels' numbers, then
+with phase 10's (``{"lm": ...}``), one with phase 11's (``{"train":
+...}``), one with the kernels' numbers, then
 the card's name and power limit, then ``{"ok": true, "device": {...}}``
 as the last line.
 """
@@ -2271,6 +2295,11 @@ SERVE_DIST_INSTANCES = 8
 #: cardinality reports join 10^8 rows on the host), then time one
 #: traced request each with it on
 TRACE_NO_CARDINALITY = ("C1", "C2")
+#: the templates 7a times one traced request of with the cardinality
+#: report on; C1's is timed at --compare-scale only (7b's
+#: ``heavy_report_turn``): at scale 340 its host joins took 245.9 and
+#: 257.2 s of the smoke (PERF.md section 6, PR 22 runs 8 and 9)
+REPORT_AT_SCALE = ("C2",)
 TRACE_RATES = (0.0, 1.0, 0.1)
 LAYOUTS_COMPARED = ("vp", "tt")
 
@@ -2343,8 +2372,9 @@ def trace_turns(eng, queries, here: str) -> dict:
     the rate adds: a traced binding's first sight runs its cardinality
     joins on the host); the p50 of the second.  ``TRACE_NO_CARDINALITY``
     runs its distinct texts with the cardinality report off, its p50s
-    apart; after the turns one traced request of each with the report
-    on gives what the report costs.  Traced results must equal untraced
+    apart; after the turns one traced request of each of
+    ``REPORT_AT_SCALE`` with the report on gives what the report
+    costs.  Traced results must equal untraced
     ones row for row; then the Chrome dump, ``tools/trace_inspect.py``
     on it, and the span checks."""
     cfg = eng.config
@@ -2387,6 +2417,8 @@ def trace_turns(eng, queries, here: str) -> dict:
     cfg.trace_cardinality = True
     report_s = {}
     for name, q in dict(heavy).items():
+        if name not in REPORT_AT_SCALE:
+            continue
         t = time.perf_counter()
         eng.query(q)
         report_s[name] = time.perf_counter() - t
@@ -2426,7 +2458,7 @@ def trace_turns(eng, queries, here: str) -> dict:
         elif qtext in heavy_texts and carded:
             n_heavy_card += 1
     if n_launch == 0 or n_card == 0 or \
-            n_heavy_card < len(TRACE_NO_CARDINALITY):
+            n_heavy_card < len(REPORT_AT_SCALE):
         raise AssertionError("no traced launch, or no cardinalities")
     return {"p50_ms": p50, "requests_per_pass": len(suite),
             "no_cardinality_p50_ms": heavy_p50,
@@ -2766,6 +2798,12 @@ def phase_serve(args, ds, eng, queries, ops, ref, jexec, probe_path,
             f"{', '.join(BATCH_CUT)} at one instance a batch in 7a, none in "
             f"its partial pass, and no phase-3 batch of them: their batch "
             f"does not fit the card at scale {args.scale} (BATCH_CUT)")
+    nums["reduced"].append(
+        f"one traced request with the cardinality report on at "
+        f"{args.scale} for {', '.join(REPORT_AT_SCALE)} only; the others "
+        f"of {', '.join(TRACE_NO_CARDINALITY)} at {args.compare_scale} "
+        f"(7b): at 340 C1's host joins took 246-257 s of the smoke "
+        f"(REPORT_AT_SCALE)")
     for line in nums["reduced"]:
         log(f"  reduced: {line}")
 
@@ -2775,7 +2813,7 @@ def phase_serve(args, ds, eng, queries, ops, ref, jexec, probe_path,
         f"report): p50 by rate (ms) {json.dumps(tr['p50_ms'])}; "
         f"{', '.join(TRACE_NO_CARDINALITY)} p50 by rate (ms) "
         f"{json.dumps(tr['no_cardinality_p50_ms'])}; one traced request "
-        f"each with the report on (s) "
+        f"of {', '.join(REPORT_AT_SCALE)} with the report on (s) "
         f"{json.dumps(tr['with_cardinality_first_s'])}; "
         f"traced results equal untraced; "
         f"{tr['traces']} traces kept, {tr['with_launch']} with a "
@@ -3500,7 +3538,6 @@ LM_CPU_SEQ = {"mamba2-370m": 256}
 LM_CPU_SEQ_DEFAULT = 64
 LM_BATCH, LM_PREFILL_SEQ, LM_DECODE_TOKENS, LM_S_MAX = 4, 1024, 32, 1024
 LM_REDUCED_STEPS = 4
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 
 
 def tree_map(fn, tree):
@@ -3631,6 +3668,7 @@ def lm_timed(m, cfg, params, gen) -> dict:
     and ``LM_DECODE_TOKENS`` steps of :func:`lm_greedy` from empty
     caches, on CUDA events; every logit finite; the peak device
     memory."""
+    from repro_torch.launch.mesh import HW
     from repro_torch.models.api import model_flops
     from repro_torch.models.config import ShapeCell
     dev = torch.device("cuda")
@@ -3669,7 +3707,7 @@ def lm_timed(m, cfg, params, gen) -> dict:
                                        "prefill"))
     return {
         "prefill_ms": round(prefill_ms, 4),
-        "prefill_bound_ms": round(flops / BF16_OPS_PER_S * 1e3, 4),
+        "prefill_bound_ms": round(flops / HW.PEAK_FLOPS_BF16 * 1e3, 4),
         "decode_ms_per_token": round(decode_ms / LM_DECODE_TOKENS, 4),
         "decode_tok_per_s": round(LM_DECODE_TOKENS * b / decode_ms * 1e3, 1),
         "decode_host_s": round(host_s, 4),
@@ -3787,6 +3825,498 @@ def phase_lm(here: str, ops, seed: int) -> dict:
     out["launches"] = dict(ops.launches)
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"  kernel launches over phase 10: {out['launches']}; "
+        f"{out['seconds']} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the LM substrate's training path
+# ---------------------------------------------------------------------------
+
+#: card against CPU, float32 with TF32 off: ‖g_card − g_cpu‖ / ‖g_cpu‖
+#: over every leaf of the gradient tree at most this
+TRAIN_GRAD_RATIO = 1e-4
+#: ... unless the model's float32 gradient is itself too ill-conditioned
+#: for that bound: where the ratio exceeds it, the CPU's gradient is
+#: taken again from params each multiplied by (1 + TRAIN_PERTURB · a
+#: normal draw), a float32 rounding's size, and the card is held to
+#: TRAIN_COND_FACTOR times the CPU's own movement.  mamba2 at full width
+#: moves by 6.58e-3 at SSD chunk 256 (6.70e-4 at chunk 16), where the
+#: card departs from the CPU by 4.88e-3 (6.92e-4): PERF.md section 6,
+#: ``tools/grad_conditioning.py``
+TRAIN_PERTURB = 1e-7
+TRAIN_COND_FACTOR = 4.0
+#: accumulation: one step with ``accum_steps=2`` against one with 1 on
+#: the same global batch, float32, no clipping: params within the
+#: reference's own rtol / atol for this check
+#: (``tests/test_train_runtime.py``), the loss within ``TRAIN_LOSS_RTOL``
+TRAIN_ACCUM_RTOL, TRAIN_ACCUM_ATOL = 2e-2, 2e-4
+TRAIN_LOSS_RTOL = 1e-5
+#: resume: losses within ``TRAIN_LOSS_RTOL`` and params and moments
+#: within this of the uninterrupted run (bit-equality is printed)
+TRAIN_RESUME_ATOL = 1e-5
+#: accumulation, the falling loss and resume (mamba2: 256, one chunk)
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
+TRAIN_FALL_STEPS = 20
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_RESUME_AT, TRAIN_RESUME_MORE = 3, 2
+TRAIN_RESUME_ARCH = "qwen1.5-0.5b"
+#: phase 11's cuts, printed as ``reduced``
+TRAIN_CUTS = [
+    "11a's falling-loss check trains with remat off: the selective "
+    "checkpoint's per-operator dispatch cost about 36 s of phase 11 "
+    "there (PERF.md section 6, PR 23 run 8); the timed step, the resume "
+    "and 11c's launcher train with it on"]
+TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 2, 16
+
+
+class no_tf32:
+    """float32 products in float32 on the card (no TF32) while open."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int, step: int = 0,
+                vocab=None, device="cuda") -> dict:
+    """The data pipeline's batch (``repro_torch.train.data``) of
+    ``batch`` rows of ``seq`` text tokens (rounded up to a whole number
+    of SSD chunks where the config has mamba blocks; plus the family's
+    frames or patches), on ``device``."""
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train.data import DataConfig, as_tensors, make_batch
+    specs = cfg.group_pattern + ((cfg.first_layer_override,)
+                                 if cfg.first_layer_override else ())
+    if any(mixer == "mamba" for mixer, _ in specs):
+        seq = -(-seq // cfg.ssm_chunk) * cfg.ssm_chunk
+    total = seq + (cfg.n_patches if cfg.vlm else 0)
+    dc = DataConfig(seed=seed, vocab=vocab or cfg.vocab)
+    return as_tensors(make_batch(dc, cfg, ShapeCell("t", total, batch,
+                                                     "train"), step), device)
+
+
+def norm_ratio(got, want) -> float:
+    """‖got − want‖ / ‖want‖ over every leaf (host tensors, float64
+    sums)."""
+    num = den = 0.0
+    for a, b in zip(got, want):
+        num += float(torch.linalg.vector_norm(a - b, dtype=torch.float64)) ** 2
+        den += float(torch.linalg.vector_norm(b, dtype=torch.float64)) ** 2
+    return (num / den) ** 0.5
+
+
+def grad_ratio(m, params, batch) -> dict:
+    """One ``loss_and_grads`` on the card and on the CPU from the same
+    params and batch (float32, TF32 off): the loss difference and
+    ‖g_card − g_cpu‖ / ‖g_cpu‖ over every leaf, at most
+    ``TRAIN_GRAD_RATIO`` or, past it, ``TRAIN_COND_FACTOR`` times the
+    CPU's own movement under a ``TRAIN_PERTURB`` perturbation of the
+    params; every gradient finite."""
+    from repro_torch.train.train_state import loss_and_grads
+    from repro_torch.train.tree import leaves
+    with no_tf32():
+        loss, grads = loss_and_grads(m, params, batch)
+    card = [g.cpu() for g in leaves(grads)]
+    del grads
+    if not all(bool(torch.isfinite(g).all()) for g in card):
+        raise AssertionError(f"{m.cfg.name}: non-finite gradient")
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    cpu_batch = tree_map(lambda x: x.cpu(), batch)
+    t = time.perf_counter()
+    cpu_loss, cpu = loss_and_grads(m, cpu_params, cpu_batch)
+    cpu_s = time.perf_counter() - t
+    cpu = leaves(cpu)
+    ratio = norm_ratio(card, cpu)
+    out = {"ratio": ratio, "loss_diff": abs(float(loss) - float(cpu_loss)),
+           "cpu_s": round(cpu_s, 2)}
+    if ratio <= TRAIN_GRAD_RATIO:
+        return out
+    gen = torch.Generator().manual_seed(5)
+    perturbed = tree_map(lambda x: x * (1 + TRAIN_PERTURB * torch.randn(
+        x.shape, generator=gen)), cpu_params)
+    _, moved = loss_and_grads(m, perturbed, cpu_batch)
+    out["cpu_perturbed_ratio"] = norm_ratio(leaves(moved), cpu)
+    if not ratio <= TRAIN_COND_FACTOR * out["cpu_perturbed_ratio"]:
+        raise AssertionError(
+            f"{m.cfg.name}: card against CPU gradient ratio {ratio:.3e} > "
+            f"{TRAIN_GRAD_RATIO} and > {TRAIN_COND_FACTOR} × the CPU's own "
+            f"{out['cpu_perturbed_ratio']:.3e} under a {TRAIN_PERTURB} "
+            f"perturbation of the params")
+    return out
+
+
+def accum_parity(cfg32, params, seed: int) -> dict:
+    """One float32 step with ``accum_steps=2`` against one with 1 on the
+    same global batch of ``TRAIN_BATCH`` × ``TRAIN_SEQ`` (no clipping;
+    an MoE config at :func:`lm_no_drops`'s capacity, since a microbatch
+    of half the tokens has half the capacity); ``params`` is consumed."""
+    from repro_torch.models.api import Model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_state import make_train_step
+    from repro_torch.train.tree import leaves
+    m = Model(lm_no_drops(cfg32))
+    opt = OptConfig(lr=1e-3, clip_norm=1e9)
+    batch = train_batch(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed + 3)
+    one = tree_map(torch.clone, params)
+    with no_tf32():
+        _, _, m1 = make_train_step(m, opt, accum_steps=1)(
+            one, init_opt_state(one), batch)
+        _, _, m2 = make_train_step(m, opt, accum_steps=2)(
+            params, init_opt_state(params), batch)
+    share = 0.0
+    for a, b in zip(leaves(params), leaves(one)):
+        diff = (a - b).abs()
+        share = max(share, float((diff / (TRAIN_ACCUM_ATOL + TRAIN_ACCUM_RTOL
+                                          * b.abs())).max()))
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / \
+        abs(float(m1["loss"]))
+    if share > 1.0 or loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{cfg32.name}: accum_steps=2 against 1: "
+                             f"{share:.3f} of the params' tolerance, loss "
+                             f"{loss_rel:.2e} relative")
+    return {"share_of_tol": share, "loss_rel": loss_rel}
+
+
+def loss_falls(m, params, seed: int):
+    """``TRAIN_FALL_STEPS`` steps at ``OptConfig(lr=1e-3,
+    warmup_steps=2)`` on ``DataConfig(seed=1, vocab=64)`` at the
+    published dtype: every loss finite, the mean of the last 5 below the
+    mean of the first 5.  Returns the losses and the optimizer state."""
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_state import make_train_step
+    step = make_train_step(m, OptConfig(lr=1e-3, warmup_steps=2))
+    state = init_opt_state(params)
+    losses = []
+    for i in range(TRAIN_FALL_STEPS):
+        batch = train_batch(m.cfg, TRAIN_BATCH, TRAIN_SEQ, 1, step=i,
+                            vocab=64)
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).float().cpu().tolist()
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"{m.cfg.name}: the loss did not fall: "
+                             f"{losses}")
+    return losses, state
+
+
+def timed_steps(m, params, state, seed: int) -> dict:
+    """``TRAIN_WARM`` then ``TRAIN_TIMED`` steps at (``LM_BATCH``,
+    ``LM_PREFILL_SEQ``) on CUDA events, split into forward + backward
+    (``loss_and_grads``) and the optimizer (``adamw_update``): the
+    medians, tokens/s and the peak device memory (params and optimizer
+    state included)."""
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_state import loss_and_grads
+    opt = OptConfig(lr=1e-3, warmup_steps=2)
+    batch = train_batch(m.cfg, LM_BATCH, LM_PREFILL_SEQ, seed + 4)
+    lm_free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    for _ in range(TRAIN_WARM + TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, grads = loss_and_grads(m, params, batch)
+        ev[1].record()
+        params, state, _ = adamw_update(opt, grads, state, params)
+        ev[2].record()
+        del grads
+        marks.append(ev)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{m.cfg.name}: non-finite loss in the timed "
+                             f"steps")
+    fb = [e[0].elapsed_time(e[1]) for e in marks[TRAIN_WARM:]]
+    up = [e[1].elapsed_time(e[2]) for e in marks[TRAIN_WARM:]]
+    step = [e[0].elapsed_time(e[2]) for e in marks[TRAIN_WARM:]]
+    step_ms = float(np.median(step))
+    return {"step_ms": step_ms, "fwd_bwd_ms": float(np.median(fb)),
+            "opt_ms": float(np.median(up)),
+            "tok_per_s": LM_BATCH * LM_PREFILL_SEQ / step_ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def resume_parity(cfg, seed: int, here: str) -> dict:
+    """``TRAIN_RESUME_AT`` steps, ``checkpoint.save(...,
+    async_write=True)``, a restore into a fresh state and
+    ``TRAIN_RESUME_MORE`` more steps, against the uninterrupted run,
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)``."""
+    from repro_torch.models.api import Model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_state import make_train_step
+    from repro_torch.train.tree import flatten_with_paths
+    ckpt = os.path.join(here, "build", "smoke_resume_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    m = Model(cfg)
+    step_fn = make_train_step(m, OptConfig(lr=1e-3, warmup_steps=2))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        p = m.init(seed, device="cuda")
+        o = init_opt_state(p)
+        losses = []
+        for i in range(TRAIN_RESUME_AT + TRAIN_RESUME_MORE):
+            p, o, mt = step_fn(p, o, train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                                 seed + 5, step=i))
+            losses.append(mt["loss"])
+            if i == TRAIN_RESUME_AT - 1:
+                t = time.perf_counter()
+                future = checkpoint.save(ckpt, TRAIN_RESUME_AT,
+                                         {"params": p, "opt": o},
+                                         async_write=True)
+                save_return_s = time.perf_counter() - t
+        written = future.result()
+        write_s = time.perf_counter() - t
+        fresh = m.init(seed + 7, device="cuda")
+        t = time.perf_counter()
+        r = checkpoint.restore(ckpt, checkpoint.latest_step(ckpt),
+                               {"params": fresh,
+                                "opt": init_opt_state(fresh)})
+        restore_s = time.perf_counter() - t
+        del fresh
+        p2, o2 = r["params"], r["opt"]
+        for i in range(TRAIN_RESUME_AT, TRAIN_RESUME_AT + TRAIN_RESUME_MORE):
+            p2, o2, mt = step_fn(p2, o2, train_batch(
+                cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 5, step=i))
+            rel = abs(float(mt["loss"]) - float(losses[i])) / \
+                abs(float(losses[i]))
+            if rel > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"resume: loss at step {i} differs by "
+                                     f"{rel:.2e} relative")
+        bitwise, err = True, 0.0
+        want = dict(flatten_with_paths({"params": p, "opt": o}))
+        for k, v in flatten_with_paths({"params": p2, "opt": o2}):
+            bitwise &= torch.equal(v, want[k])
+            err = max(err, float((v.float() - want[k].float()).abs().max()))
+        if err > TRAIN_RESUME_ATOL:
+            raise AssertionError(f"resume: params or moments differ by {err}")
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"bitwise": bool(bitwise), "max_abs_err": err,
+            "save_return_s": round(save_return_s, 3),
+            "write_s": round(write_s, 2), "restore_s": round(restore_s, 2),
+            "written": os.path.basename(written)}
+
+
+def train_exact(name: str, seed: int) -> dict:
+    """11a's float32 half for one config at its published widths and
+    depth: card against CPU gradients, then accumulation parity."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import Model, total_params
+    cfg32 = dataclasses.replace(get(name), dtype="float32")
+    out = {"params": total_params(cfg32)}
+    t0 = time.perf_counter()
+    params = Model(cfg32).init(seed, device="cuda")
+    s = LM_CPU_SEQ.get(name, LM_CPU_SEQ_DEFAULT)
+    out["card_vs_cpu"] = dict(grad_ratio(
+        Model(cfg32), params, train_batch(cfg32, 1, s, seed + 2)), seq=s)
+    lm_free()
+    out["accum"] = accum_parity(cfg32, params, seed)
+    del params
+    lm_free()
+    out["exact_s"] = round(time.perf_counter() - t0, 1)
+    cvc, acc = out["card_vs_cpu"], out["accum"]
+    held = f"<= {TRAIN_GRAD_RATIO}" if "cpu_perturbed_ratio" not in cvc \
+        else (f"<= {TRAIN_COND_FACTOR} × the CPU's own "
+              f"{cvc['cpu_perturbed_ratio']:.3e} under a {TRAIN_PERTURB} "
+              f"perturbation of the params")
+    log(f"  {name} ({out['params'] / 1e6:.1f} M params), float32: card == "
+        f"CPU gradients at B 1 × S {cvc['seq']} (ratio {cvc['ratio']:.3e} "
+        f"{held}, loss diff {cvc['loss_diff']:.2e}; CPU {cvc['cpu_s']} s); "
+        f"accum 2 == 1 ({acc['share_of_tol']:.3f} of rtol "
+        f"{TRAIN_ACCUM_RTOL} / atol {TRAIN_ACCUM_ATOL}, loss "
+        f"{acc['loss_rel']:.2e}); {out['exact_s']} s")
+    return out
+
+
+def train_published(name: str, seed: int, here: str) -> dict:
+    """11a's half at the published dtype for one config: the falling
+    loss, the timed step with remat on and off, and (qwen) resume."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models.api import Model, model_flops
+    from repro_torch.models.config import ShapeCell
+    cfg = get(name)
+    out = {"remat": cfg.remat}
+    t0 = time.perf_counter()
+    params = Model(cfg).init(seed, device="cuda")
+    out["losses"], state = loss_falls(
+        Model(dataclasses.replace(cfg, remat=False)), params, seed)
+    out["timed"] = {}
+    for remat in (True, False):
+        mr = Model(dataclasses.replace(cfg, remat=remat))
+        out["timed"]["remat_on" if remat else "remat_off"] = timed_steps(
+            mr, params, state, seed)
+    del params, state
+    lm_free()
+    bound = model_flops(cfg, ShapeCell("train", LM_PREFILL_SEQ, LM_BATCH,
+                                       "train")) / HW.PEAK_FLOPS_BF16 * 1e3
+    out["bound_ms"] = bound
+    for v in out["timed"].values():
+        v["share_of_bound"] = bound / v["step_ms"]
+    on, off = out["timed"]["remat_on"], out["timed"]["remat_off"]
+    if not on["peak_gib"] < off["peak_gib"]:
+        raise AssertionError(f"{name}: peak with remat on {on['peak_gib']} "
+                             f"GiB not below off {off['peak_gib']} GiB")
+    if name == TRAIN_RESUME_ARCH:
+        out["resume"] = resume_parity(cfg, seed, here)
+    out["train_s"] = round(time.perf_counter() - t0, 1)
+    log(f"  {name}, {cfg.dtype}: loss {out['losses'][0]:.3f} -> "
+        f"{out['losses'][-1]:.3f} over {TRAIN_FALL_STEPS} steps (remat "
+        f"off)")
+    for k, v in out["timed"].items():
+        log(f"    step at {LM_BATCH} × {LM_PREFILL_SEQ}, {k}: "
+            f"{v['step_ms']:.4f} ms (forward + backward "
+            f"{v['fwd_bwd_ms']:.4f}, optimizer {v['opt_ms']:.4f}), "
+            f"{v['tok_per_s']:.1f} tok/s, bound {bound:.4f} ms "
+            f"({v['share_of_bound']:.4f} of it), peak "
+            f"{v['peak_gib']:.3f} GiB")
+    if "resume" in out:
+        r = out["resume"]
+        log(f"    resume: saved at step {TRAIN_RESUME_AT} (save returned "
+            f"in {r['save_return_s']} s, its files in place {r['write_s']} "
+            f"s after the call, the next steps running meanwhile), "
+            f"restored in {r['restore_s']} s, {TRAIN_RESUME_MORE} more "
+            f"steps equal to the uninterrupted run (bitwise "
+            f"{r['bitwise']}, max abs err {r['max_abs_err']:.2e})")
+    log(f"    {out['train_s']} s")
+    return out
+
+
+def train_reduced(name: str, seed: int) -> dict:
+    """11b for one config at reduced size: float32 gradients on the card
+    against the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.api import Model
+    cfg = get_reduced(name, dtype="float32")
+    params = Model(cfg).init(seed, device="cuda")
+    return grad_ratio(Model(cfg), params,
+                      train_batch(cfg, TRAIN_REDUCED_BATCH,
+                                  TRAIN_REDUCED_SEQ, seed + 2))
+
+
+class Subprocesses:
+    """Commands run one after another in a thread, each as a
+    subprocess of the script (``PYTHONPATH`` at the checkout's ``src``);
+    :meth:`results` waits for them, :meth:`stop` kills the one
+    running."""
+
+    def __init__(self, here: str, commands):
+        import threading
+        self.here, self.commands = here, commands
+        self.outputs, self.seconds, self.error = [], [], None
+        self.proc, self.stopped = None, False
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        env = dict(os.environ, PYTHONPATH=os.path.join(self.here, "src"))
+        try:
+            for argv in self.commands:
+                if self.stopped:
+                    return
+                t = time.perf_counter()
+                self.proc = subprocess.Popen(
+                    [sys.executable, *argv], cwd=self.here, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                stdout, stderr = self.proc.communicate(timeout=600)
+                if self.proc.returncode != 0:
+                    raise AssertionError(
+                        f"{argv[:2]} exited {self.proc.returncode}:\n"
+                        f"{stdout[-2000:]}\n{stderr[-2000:]}")
+                self.outputs.append(stdout)
+                self.seconds.append(round(time.perf_counter() - t, 1))
+        except Exception as e:          # reported by results()
+            self.error = e
+
+    def stop(self) -> None:
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def results(self, timeout: float):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            raise AssertionError("phase 11c's subprocesses did not finish")
+        if self.error is not None:
+            raise self.error
+        return self.outputs, self.seconds
+
+
+def phase_train(here: str, ops, seed: int) -> dict:
+    """Phase 11: the LM training path, with the kernels' launch counts
+    reset before and read after (the path launches none of them).  11c's
+    subprocesses run while the float32 checks of 11a and 11b do; the
+    timed half of 11a runs after they end, alone on the card."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    out = {"full_width": {}, "reduced": {}, "cuts": TRAIN_CUTS}
+    for line in TRAIN_CUTS:
+        log(f"  reduced: {line}")
+    ckpt = os.path.join(here, "build", "smoke_ckpt")
+    ckpt_ex = os.path.join(here, "build", "smoke_ckpt_ex")
+    for d in (ckpt, ckpt_ex):
+        shutil.rmtree(d, ignore_errors=True)
+    launcher = ("-m", "repro_torch.launch.train", "--arch", "qwen1.5-0.5b",
+                "--ckpt-dir", ckpt, "--ckpt-every", "10")
+    background = Subprocesses(here, [
+        launcher + ("--steps", "20"), launcher + ("--steps", "25"),
+        (os.path.join("examples", "train_lm_torch.py"), "--steps", "20",
+         "--ckpt-dir", ckpt_ex)])
+    try:
+        for name in LM_FULL:
+            out["full_width"][name] = train_exact(name, seed)
+        for name in LM_REDUCED:
+            out["reduced"][name] = train_reduced(name, seed)
+        ratios = {k: float(f"{v['ratio']:.3e}")
+                  for k, v in out["reduced"].items()}
+        log(f"  reduced, card == CPU gradients (float32), ratio: {ratios}")
+        t = time.perf_counter()
+        (first, second, example), seconds = background.results(600)
+        out["waited_for_11c_s"] = round(time.perf_counter() - t, 1)
+    finally:
+        background.stop()
+        for d in (ckpt, ckpt_ex):
+            shutil.rmtree(d, ignore_errors=True)
+    resumed = "[elastic] resumed from step 10 onto 1 devices"
+    if not first.rstrip().endswith("training complete") or \
+            resumed in first or resumed not in second or \
+            not second.rstrip().endswith("training complete"):
+        raise AssertionError(f"launcher:\n{first[-2000:]}\n{second[-2000:]}")
+    if not example.rstrip().endswith("done."):
+        raise AssertionError(f"train_lm_torch.py:\n{example[-2000:]}")
+    out["launcher"] = {"first": first.strip().splitlines(),
+                       "second": second.strip().splitlines(),
+                       "s": seconds[:2]}
+    out["example"] = {"lines": example.strip().splitlines(),
+                      "s": seconds[2]}
+    log(f"  launcher (while the float32 checks ran): 20 steps then 25 "
+        f"resumed from step 10, exit 0 in {seconds[0]} + {seconds[1]} s: "
+        f"{first.strip().splitlines()[-2]} / "
+        f"{second.strip().splitlines()[-2]}")
+    log(f"  examples/train_lm_torch.py: exit 0 in {seconds[2]} s: "
+        f"{example.strip().splitlines()[-2]}; waited "
+        f"{out['waited_for_11c_s']} s for 11c")
+    for name in LM_FULL:
+        out["full_width"][name].update(train_published(name, seed, here))
+    out["launches"] = dict(ops.launches)
+    if any(out["launches"].values()):
+        raise AssertionError(f"a kernel was launched on the training path: "
+                             f"{out['launches']}")
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"  kernel launches over phase 11: {out['launches']}; "
         f"{out['seconds']} s")
     return out
 
@@ -3931,6 +4461,8 @@ def main() -> int:
     ranks = phase_two_ranks(args, store, queries_file, here)
     stage("[10] the LM serving path")
     lm = phase_lm(here, ops, args.seed)
+    stage("[11] the LM training path")
+    train = phase_train(here, ops, args.seed)
     stage("[end]")
     print(json.dumps({"phase6": {"one_rank": one_rank, "two_ranks": {
         "backend": "gloo", "ranks": 2, "scale": args.compare_scale,
@@ -3949,6 +4481,7 @@ def main() -> int:
     print(json.dumps({"phase8": adaptive}), flush=True)
     print(json.dumps({"phase9": analysis9}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

@@ -70,12 +70,13 @@ class ArchConfig:
     # numerics / runtime
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # activation checkpointing of the group body while training; no
-    # effect on inference, and no effect on one card yet
+    # activation checkpointing of the group body while autograd records
+    # (torch.utils.checkpoint); no effect on inference
     remat: bool = True
     # the JAX package's scan unroll factor; no effect on one card yet
     scan_unroll: int = 1
-    # shard optimizer state over the data axis; no effect on one card yet
+    # shard optimizer state over the data axis (models/sharding.py's
+    # opt_state_specs); no effect on one card
     zero1: bool = False
     # flash-style chunked attention for train/prefill self-attention
     # (online softmax over KV chunks; 0 = dense S×S path)

@@ -6,7 +6,9 @@ layers for whisper-small) is the system under test.  Encoder layers are
 bidirectional; decoder layers interleave causal self-attention,
 cross-attention over the encoder output, and GELU FFNs.  Both stacks keep
 per-layer-stacked parameters (a leading layer axis on every leaf) and
-loop over layers.
+loop over layers (the stacked leaves unbound once a forward; each
+layer's body under activation checkpointing, nothing inside kept, when
+``cfg.remat`` is set and autograd records).
 
 Decode state = causal self-KV caches plus the cross K/V projections
 computed once from the encoder output (the standard serving split).
@@ -25,8 +27,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (embed, gelu_mlp, init_embed,
                                        init_gelu_mlp, init_layernorm,
                                        layernorm)
-from repro_torch.models.transformer import (_head, _index, dtype_of,
-                                            next_token_nll)
+from repro_torch.models.transformer import (_head, _index, _unbind,
+                                            dtype_of, next_token_nll, remat)
 
 Params = Dict[str, Any]
 
@@ -65,12 +67,16 @@ def encode(params: Params, frames: torch.Tensor,
            cfg: ArchConfig) -> torch.Tensor:
     """frames (B, F, D) stub embeddings -> encoder states (B, F, D)."""
     x = frames.to(dtype_of(cfg.dtype))
-    for i in range(cfg.n_enc_layers):
-        lp = _index(params["enc_layers"], i)
-        h = layernorm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + attn.attention_bidir(lp["attn"], h, cfg)
-        h = layernorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + gelu_mlp(lp["mlp"], h)
+
+    def body(xc, lp):
+        h = layernorm(lp["attn_norm"], xc, cfg.norm_eps)
+        xc = xc + attn.attention_bidir(lp["attn"], h, cfg)
+        h = layernorm(lp["mlp_norm"], xc, cfg.norm_eps)
+        return xc + gelu_mlp(lp["mlp"], h)
+
+    body = remat(body, cfg, save_products=False)
+    for lp in _unbind(params["enc_layers"], cfg.n_enc_layers):
+        x = body(x, lp)
     return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -78,15 +84,19 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """Teacher-forced decoder -> logits (B, S, V)."""
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = _index(params["dec_layers"], i)
-        h = layernorm(lp["self_norm"], x, cfg.norm_eps)
-        x = x + attn.attention(lp["self"], h, cfg)
-        h = layernorm(lp["cross_norm"], x, cfg.norm_eps)
-        kv = attn.encoder_kv(lp["cross"], enc_out)
-        x = x + attn.cross_attention(lp["cross"], h, kv, cfg)
-        h = layernorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + gelu_mlp(lp["mlp"], h)
+
+    def body(xc, lp, enc):
+        h = layernorm(lp["self_norm"], xc, cfg.norm_eps)
+        xc = xc + attn.attention(lp["self"], h, cfg)
+        h = layernorm(lp["cross_norm"], xc, cfg.norm_eps)
+        kv = attn.encoder_kv(lp["cross"], enc)
+        xc = xc + attn.cross_attention(lp["cross"], h, kv, cfg)
+        h = layernorm(lp["mlp_norm"], xc, cfg.norm_eps)
+        return xc + gelu_mlp(lp["mlp"], h)
+
+    body = remat(body, cfg, save_products=False)
+    for lp in _unbind(params["dec_layers"], cfg.n_layers):
+        x = body(x, lp, enc_out)
     x = layernorm(params["dec_norm"], x, cfg.norm_eps)
     return _head(params, x)
 

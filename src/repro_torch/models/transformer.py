@@ -3,8 +3,16 @@ families, plus the LLaVA text backbone with stubbed patch embeddings).
 
 The layer stack is a loop over *groups* (one group = one period of
 ``cfg.group_pattern``); every leaf of ``params["groups"]`` carries a
-leading (n_groups,) axis, the JAX package's parameter tree, and the loop
-indexes each stacked leaf.
+leading (n_groups,) axis, the JAX package's parameter tree.  The
+forward unbinds each stacked leaf once (views; under autograd its
+backward is one ``stack``, where indexing each group would write a
+zero tensor of the whole stacked leaf per group); decode indexes it.
+
+Activation checkpointing (``cfg.remat``), while autograd records: each
+group's body runs under ``torch.utils.checkpoint`` and keeps only the
+outputs of its products without batch dims (the JAX package's
+``dots_with_no_batch_dims_saveable`` policy), recomputing the rest in
+the backward.  Values and gradients are the same with it on and off.
 
 Decode state: per group-position either an attention KV cache
 (n_groups, B, S_cache, KV, hd) or an SSM state {h, conv_*} with a leading
@@ -14,10 +22,13 @@ caches in place and returns them.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -40,6 +51,44 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> List[Any]:
+    """A stacked tree as ``n`` trees, one ``torch.unbind`` a leaf (views,
+    no copies; under autograd the backward of each is one ``stack``)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+_aten = torch.ops.aten
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the outputs of products without batch dims (``mm``,
+    ``addmm``, and the ``bmm`` of batch 1 that an einsum contracting no
+    batch dim lowers to); recompute everything else, batched products
+    included."""
+    if op in (_aten.mm.default, _aten.addmm.default) or \
+            (op == _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(body: Callable, cfg: ArchConfig,
+          save_products: bool) -> Callable:
+    """``body`` under activation checkpointing when ``cfg.remat`` is set
+    and autograd records, else ``body`` itself: with ``save_products``
+    the outputs of products without batch dims are kept
+    (:func:`_save_products`), without it nothing inside is kept."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    kw = {"use_reentrant": False}
+    if save_products:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+    return functools.partial(checkpoint, body, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +167,15 @@ def forward_hidden(params: Params, x: torch.Tensor,
     """Embedded input (B, S, D) -> final hidden states (B, S, D)."""
     if cfg.first_layer_override:
         x = _apply_block(params["first"], cfg.first_layer_override, x, cfg)
-    for g in range(cfg.n_groups):
-        gp = _index(params["groups"], g)
+
+    def group_body(xc, gp):
         for i, spec in enumerate(cfg.group_pattern):
-            x = _apply_block(gp[f"pos_{i}"], spec, x, cfg)
+            xc = _apply_block(gp[f"pos_{i}"], spec, xc, cfg)
+        return xc
+
+    body = remat(group_body, cfg, save_products=True)
+    for gp in _unbind(params["groups"], cfg.n_groups):
+        x = body(x, gp)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

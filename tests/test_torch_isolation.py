@@ -159,10 +159,54 @@ print("BAD", bad)
 """
 
 
+_TRAIN_CHILD = r"""
+import sys, tempfile
+import torch
+import repro_torch.train, repro_torch.launch.train, repro_torch.launch.mesh
+from repro_torch.configs import get_reduced
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import sharding
+from repro_torch.models.api import Model
+from repro_torch.models.config import ShapeCell
+from repro_torch.train import checkpoint, elastic
+from repro_torch.train.data import DataConfig, as_tensors, make_batch
+from repro_torch.train.optimizer import OptConfig, init_opt_state
+from repro_torch.train.train_state import make_train_step
+rows = 0
+for name in ("qwen1.5-0.5b", "jamba-1.5-large-398b", "whisper-small"):
+    cfg = get_reduced(name, remat=True)
+    m = Model(cfg)
+    params = m.init(0, device="cpu")
+    state = init_opt_state(params)
+    step = make_train_step(m, OptConfig(), accum_steps=2,
+                           compress_grads=True)
+    batch = as_tensors(make_batch(DataConfig(), cfg,
+                                  ShapeCell("t", 16, 2, "train"), 0), "cpu")
+    params, state, err, metrics = step(params, state, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save(tmp, 1, {"params": params, "opt": state}).result()
+        checkpoint.restore(tmp, checkpoint.latest_step(tmp),
+                           {"params": params, "opt": state})
+    specs = sharding.param_specs(params, make_production_mesh())
+    rows += int(torch.isfinite(metrics["loss"])) * len(specs)
+elastic.ElasticPolicy().plan(4)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("ROWS", rows)
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     return env
+
+
+def _one_thread_env():
+    """``_env()`` with one intra-op thread: the training children's
+    tensors are small, and the suite's workers share the cores."""
+    return dict(_env(), OMP_NUM_THREADS="1")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -243,14 +287,75 @@ def test_lm_launcher_decodes_on_the_cpu():
                      re.M), out.stdout
 
 
+def test_training_path_imports_neither_jax_nor_repro():
+    """The train modules (data, optimizer, compression, train step,
+    checkpoint, elastic), the sharding rules, the mesh and the launcher
+    module, and a reduced train step of a dense, a hybrid and an
+    encoder-decoder architecture on the CPU, all through the port."""
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD],
+                         env=_one_thread_env(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("ROWS")[1].split()[0]) > 0
+
+
+def test_train_launcher_runs_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "3", "--device", "cpu"],
+        env=_one_thread_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"^step     0 loss [0-9.]+ gnorm [0-9.]+ [0-9]+ms$",
+                     out.stdout, re.M), out.stdout
+    assert out.stdout.rstrip().endswith("training complete")
+
+
+def test_train_twin_runs_and_resumes_on_the_cpu(tmp_path):
+    cmd = [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"),
+           "--device", "cpu", "--width", "64", "--layers", "1", "--batch",
+           "2", "--seq", "32", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+           "1"]
+    out = subprocess.run(cmd + ["--steps", "3"], env=_one_thread_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "(reduced):" in out.stdout and out.stdout.endswith("done.\n")
+    out = subprocess.run(cmd + ["--steps", "5"], env=_one_thread_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "resumed from checkpoint step 2" in out.stdout, out.stdout
+
+
+def test_train_launcher_needs_cuda_unless_asked_for_cpu():
+    """No ``--device`` means the card, and the launcher raises without
+    one; ``--mesh production`` raises on fewer ranks than the mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "1"], env=_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "training complete" not in out.stdout
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "1", "--device", "cpu", "--mesh", "production"],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "needs 256 ranks" in out.stderr
+
+
 def test_tools_and_examples_of_the_port_import_neither():
     """The lint's command line and the example twins stand on the port
     alone, as its sources do."""
     pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
     files = [ROOT / "tools" / "replint_torch.py",
              ROOT / "tools" / "lm_profile.py",
+             ROOT / "tools" / "train_profile.py",
+             ROOT / "tools" / "grad_conditioning.py",
              ROOT / "examples" / "quickstart_torch.py",
-             ROOT / "examples" / "serve_sparql_torch.py"]
+             ROOT / "examples" / "serve_sparql_torch.py",
+             ROOT / "examples" / "train_lm_torch.py"]
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []
