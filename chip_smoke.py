@@ -45,10 +45,11 @@ Phases (any failure exits non-zero and prints no result line):
    sends every segment to the search, in turns);
 4. the check: the card engine and the same port engine on the CPU serve
    the same queries, and every result must be equal row for row, with
-   equal final capacities: every instance, single and batched.  At
-   ``--scale`` every template but C1 and C2 (10^8 result rows each,
-   which the CPU engine cannot serve within the smoke's time limit); at
-   ``--compare-scale`` (a tenth) every template;
+   equal final capacities.  At ``--scale`` the first instance of every
+   template but C1 and C2 (10^8 result rows each, which the CPU engine
+   cannot serve within the smoke's time limit), single (``DEPTH_CUTS``);
+   at ``--compare-scale`` (a tenth) every instance of every template,
+   single and batched;
 5. append, save and load at ``--compare-scale``: build on the first 99 %
    of the triples, save, append the last 1 %, load the store lazily
    (the journal replays on the card), and hold the catalog byte for
@@ -164,7 +165,7 @@ Phases (any failure exits non-zero and prints no result line):
    granite-moe-1b-a400m, mamba2-370m and whisper-small at full width,
    one config at a time, params from the port's ``init`` on the card
    (seed ``--seed``), freed before the next.  In float32: teacher-forced
-   ``forward`` equal to 256 ``decode`` steps at B = 2 (whisper:
+   ``forward`` equal to 128 ``decode`` steps at B = 2 (whisper:
    ``decode_train`` against ``decode_step`` over caches of one encoder
    output; granite-moe at a capacity no routing exceeds,
    ``lm_no_drops``; mamba2's forward at an SSD chunk of 16,
@@ -199,6 +200,27 @@ Phases (any failure exits non-zero and prints no result line):
    and on qwen a checkpoint saved at step 3, restored into a fresh
    state and 2 more steps equal to the uninterrupted run under
    deterministic algorithms.
+12. the dry run (``repro_torch.launch.dryrun``) against the card, after
+   phase 11.  12a: the S2RDF cell at one NCCL rank (``--mesh auto``),
+   with the kernels' launch counts reset before and read after (all
+   three must run): ``Dataset.watdiv(2.0, seed=0)`` built on the card
+   (the semi-join), then for ``extvp`` and ``vp`` the record of one
+   attempt at the initial caps (collective bytes by kind, ``collective_s``
+   at the NVLink figure, traced bytes, ``overflowed``) and a full run
+   of the cell's query (join probe and bucket count), whose answer must
+   equal the single-device engine's as a multiset (checked after the
+   counts are read); the vp/extvp ratio of collective bytes.  12b: for
+   qwen1.5-0.5b and granite-moe-1b-a400m at full width and bf16, the dry
+   run's record at a one-card mesh of phase 10a's prefill (4 × 1,024)
+   and phase 11a's train step (4 × 1,024, remat off): its
+   ``traced_flops_total`` must equal a ``FlopCounterMode`` count of the
+   same step run on the card, and its ``argument_bytes`` the summed
+   bytes of the params, optimizer state and batch on the card, both
+   exactly; each step's ``step_seconds_bound`` (the eager port's traced
+   work: its unfused traffic, not a floor) and
+   ``step_seconds_bound_lower`` (one pass over arguments, outputs and
+   peak temporaries: the floor) are printed beside the milliseconds
+   phases 10a and 11a measured, as shares (not timed again).
 
 Each phase's header gives the seconds since the start.  It prints one
 JSON line with phase 6's numbers, one with the join probe's numbers
@@ -206,7 +228,8 @@ over the main path, one with the batched probe's (phase 2's check, the
 served step's times, each template's launches per served batch), one
 with phase 7's numbers, one with phase 8's, one with phase 9's, one
 with phase 10's (``{"lm": ...}``), one with phase 11's (``{"train":
-...}``), one with the kernels' numbers, then
+...}``), one with phase 12's (``{"dryrun": ...}``), one with the
+kernels' numbers, then
 the card's name and power limit, then ``{"ok": true, "device": {...}}``
 as the last line.
 """
@@ -236,6 +259,21 @@ KERNEL_SOURCE = {
     "semijoin_membership": "src/repro_torch/kernels/csrc/semijoin.cu",
     "bucket_count": "src/repro_torch/kernels/csrc/bucketcount.cu"}
 PROBE_PAD = 2**31 - 1
+#: depth cuts of earlier paths that keep the smoke inside its time limit
+#: (a whole run on a slower host reached ``[end]`` at 1,318 s of the
+#: 1,200 allowed: PERF.md section 6), printed as ``reduced`` in phase 4
+DEPTH_CUTS = [
+    "phase 4 at --scale holds each template's first instance, single, "
+    "card against CPU (was every instance and each template's batch); "
+    "--compare-scale still holds every instance and batch",
+    "7a's trace turns at --scale run one text each of C1 and C2 (was "
+    "each distinct instance)",
+    "8b's pt layout times C1 and C2 by their checked run (was one more "
+    "run each): on the host engine a run of theirs takes 3.5-18 s",
+    "10a holds decode against forward over 128 positions (was 256)"]
+#: distinct texts of each ``TRACE_NO_CARDINALITY`` template in 7a's
+#: trace turns
+HEAVY_TEXTS = 1
 #: seconds the two ranks of phase 6b may take together
 RANKS_TIMEOUT_S = 600
 #: templates phase 6a leaves out: at one rank their shuffles' static
@@ -1677,19 +1715,22 @@ def phase_identity(ds, build_extvp):
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
-def compare(ds, gpu, queries, ops, skip=()) -> None:
+def compare(ds, gpu, queries, ops, skip=(), first_only=False) -> None:
     """Every instance of every template but those in ``skip`` through
-    ``query`` and each template's instances through ``query_batch``, on
-    the card engine ``gpu`` and on the same port engine on the CPU:
-    results equal row for row, and both executors end with the same
-    capacities.  Results are dropped as soon as they are compared."""
+    ``query`` and each template's instances through ``query_batch`` (with
+    ``first_only``, each template's first instance through ``query``
+    alone), on the card engine ``gpu`` and on the same port engine on
+    the CPU: results equal row for row, and both executors end with the
+    same capacities.  Results are dropped as soon as they are
+    compared."""
     cpu = ds.engine(device="cpu")
     ops.reset_launches()
     n, t_gpu, t_cpu = 0, 0.0, 0.0
     for name, insts in queries.items():
         if name in skip:
             continue
-        runs = [("query", [q]) for q in insts] + [("query_batch", insts)]
+        runs = [("query", [insts[0]])] if first_only else \
+            [("query", [q]) for q in insts] + [("query_batch", insts)]
         for how, qs in runs:
             t = time.perf_counter()
             g = gpu.query(qs[0]) if how == "query" else gpu.query_batch(qs)
@@ -2381,7 +2422,7 @@ def trace_turns(eng, queries, here: str) -> dict:
     suite = [(n, q) for n, insts in queries.items()
              if n not in TRACE_NO_CARDINALITY for q in insts]
     heavy = [(n, q) for n in TRACE_NO_CARDINALITY
-             for q in dict.fromkeys(queries[n])]
+             for q in list(dict.fromkeys(queries[n]))[:HEAVY_TEXTS]]
     base, p50, heavy_p50 = {}, {}, {}
 
     def turn(items, rate) -> dict:
@@ -3047,8 +3088,8 @@ AUTO_SMALL_ONLY = ("C1", "C2")
 #: over 500 ms), where each probe sends a whole batch of 32 there
 DEFAULT_KNOBS_CUT = ("F1", "F2", "F4", "C3")
 #: warm passes a template takes on the pt layout for its p50 (the
-#: AUTO_SMALL_ONLY ones take one: on the host their pt joins take
-#: seconds)
+#: AUTO_SMALL_ONLY ones take none: on the host their pt joins take
+#: seconds, so their checked run is timed; DEPTH_CUTS)
 PT_REPS = 2
 
 
@@ -3107,17 +3148,22 @@ def pt_turns(ds, queries, names) -> dict:
     """Every template of ``names`` under ``layout="pt"`` on a torch
     engine, which serves it through the flagged eager fallback: one cold
     run held against the eager engine (multisets), then warm runs for a
-    p50 of host time.  Every request must count as a fallback."""
+    p50 of host time (``AUTO_SMALL_ONLY``: the cold run's time).  Every
+    request must count as a fallback."""
     from repro_torch import Engine
     pt = Engine(ds, layout="pt")
     eager = Engine(ds, backend="eager")
     out = {}
     for name in names:
         q = queries[name][0]
-        if not same_bag(pt.query(q), eager.query(q)):
+        t = time.perf_counter()
+        got = pt.query(q)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        if not same_bag(got, eager.query(q)):
             raise AssertionError(f"{name}: pt != eager")
-        lat = []
-        for _ in range(1 if name in AUTO_SMALL_ONLY else PT_REPS):
+        del got
+        lat = [cold_ms] if name in AUTO_SMALL_ONLY else []
+        for _ in range(0 if name in AUTO_SMALL_ONLY else PT_REPS):
             t = time.perf_counter()
             pt.query(q)
             lat.append((time.perf_counter() - t) * 1e3)
@@ -3142,7 +3188,8 @@ def log_auto(turns: dict, pt: dict, layouts: dict) -> None:
         cols = "" if lay is None else (
             f"; extvp {lay['extvp']:.3f}, vp {lay['vp']:.3f}, tt "
             f"{lay['tt']:.3f} ms (phase 7, card)")
-        log(f"    {name}: pt p50 {ms:.3f} ms (host time){cols}")
+        what = "the checked run" if name in AUTO_SMALL_ONLY else "p50"
+        log(f"    {name}: pt {what} {ms:.3f} ms (host time){cols}")
 
 
 def phase_adaptive(args, ds, eng, queries, ops, scale: float, auto_names,
@@ -3525,7 +3572,7 @@ LM_FULL = {"qwen1.5-0.5b": 2e-3, "granite-moe-1b-a400m": 2e-3,
 LM_REDUCED = {"gemma3-12b": 2e-3, "mistral-nemo-12b": 2e-3,
               "granite-3-2b": 2e-3, "deepseek-moe-16b": 2e-3,
               "jamba-1.5-large-398b": 5e-3, "llava-next-34b": 2e-3}
-LM_EXACT_BATCH, LM_EXACT_SEQ = 2, 256       # a multiple of mamba2's chunk
+LM_EXACT_BATCH, LM_EXACT_SEQ = 2, 128       # a multiple of LM_EXACT_SSM_CHUNK
 #: decode is held against a forward whose SSD chunk is at most this: at
 #: mamba2's published 256 a chunk's cumulative log-decay reaches about
 #: -2,900, where a float32 step is 2.4e-4, and the chunked forward
@@ -4321,6 +4368,185 @@ def phase_train(here: str, ops, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: the LM configs whose dry-run records are held against the card
+DRYRUN_LM = ("qwen1.5-0.5b", "granite-moe-1b-a400m")
+#: the dry run's S2RDF cell: the JAX package's WatDiv scale
+DRYRUN_S2RDF_SCALE = 2.0
+DRYRUN_LAYOUTS = ("extvp", "vp")
+
+
+def dryrun_s2rdf(ops, here: str) -> dict:
+    """12a: the S2RDF cell at one NCCL rank, launches counted over the
+    cell (build, records, full runs), then each full run's answer held
+    against the single-device engine's."""
+    import torch.distributed as dist
+    from repro_torch import Dataset
+    from repro_torch.launch import dryrun as D
+    rdv = os.path.join(here, "build", "smoke_nccl_rendezvous_12")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    out = {"scale": DRYRUN_S2RDF_SCALE, "ranks": 1, "query": D.S2RDF_QUERY}
+    try:
+        ops.reset_launches()
+        t = time.perf_counter()
+        ds = Dataset.watdiv(scale=DRYRUN_S2RDF_SCALE, seed=0)
+        out["build_s"] = round(time.perf_counter() - t, 3)
+        answers = {}
+        for layout in DRYRUN_LAYOUTS:
+            prepared, _ = D.build_s2rdf_cell("auto", layout=layout,
+                                             dataset=ds)
+            rec = D.s2rdf_record(prepared)
+            answers[layout] = prepared.run()
+            out[layout] = {k: rec[k] for k in (
+                "caps", "overflowed", "collectives",
+                "collective_bytes_per_chip", "collective_bytes_weighted",
+                "collective_s", "traced_bytes_total", "aten_ops",
+                "memory_s", "dominant", "step_seconds_bound",
+                "argument_bytes", "output_bytes", "temp_bytes")}
+            out[layout]["rows"] = len(answers[layout])
+        out["launches"] = dict(ops.launches)
+    finally:
+        dist.destroy_process_group()
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the dry run's "
+                             f"S2RDF cell: {out['launches']}")
+    for layout in DRYRUN_LAYOUTS:
+        want = ds.engine(layout=layout).query(D.S2RDF_QUERY)
+        if not same_multiset(answers[layout], want):
+            raise AssertionError(f"the S2RDF cell ({layout}) at one rank "
+                                 f"differs from the single-device engine")
+    out["vp_over_extvp"] = out["vp"]["collective_bytes_per_chip"] / \
+        out["extvp"]["collective_bytes_per_chip"]
+    return out
+
+
+def _tree_bytes(*trees) -> int:
+    from repro_torch.train.tree import leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in leaves(tree))
+
+
+def dryrun_lm(name: str, seed: int, prefill_ms: float,
+              step_ms: float) -> dict:
+    """12b for one config at full width: the dry run's records at a
+    one-card mesh against the same steps on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_state import make_train_step
+    mesh = {"card": ((1,), ("data",))}
+    cfg = get(name)
+    cfg_off = dataclasses.replace(cfg, remat=False)
+    out = {}
+    params = Model(cfg).init(seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    cells = (("prefill", cfg, LM_PREFILL_SEQ, prefill_ms),
+             ("train", cfg_off, LM_PREFILL_SEQ, step_ms))
+    for kind, c, seq, ms in cells:
+        cell = ShapeCell(f"{kind}_smoke", seq, LM_BATCH, kind)
+        rec = D.lm_records(c, cell, mesh)["card"]
+        torch.cuda.synchronize()
+        if kind == "prefill":
+            batch = lm_inputs(c, LM_BATCH, seq, gen, torch.device("cuda"))
+            card_bytes = _tree_bytes(params, batch)
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                Model(c).prefill(params, batch)
+        else:
+            state = init_opt_state(params)
+            batch = train_batch(c, LM_BATCH, seq, seed + 4)
+            card_bytes = _tree_bytes(params, state, batch)
+            step = make_train_step(Model(c), OptConfig())
+            with FlopCounterMode(display=False) as fc:
+                step(params, state, batch)
+            del state
+        torch.cuda.synchronize()
+        want = Model(c).input_specs(cell)
+        if {k: (tuple(v.shape), v.dtype) for k, v in want.items()} != \
+                {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}:
+            raise AssertionError(f"{name} {kind}: the card's batch is not "
+                                 f"the dry run's cell")
+        card_flops = int(fc.get_total_flops())
+        if rec["traced_flops_total"] != card_flops or \
+                rec["argument_bytes"] != card_bytes:
+            raise AssertionError(
+                f"{name} {kind}: dry run FLOPs {rec['traced_flops_total']} "
+                f"/ argument bytes {rec['argument_bytes']} against the "
+                f"card's {card_flops} / {card_bytes}")
+        traced_ms = rec["step_seconds_bound"] * 1e3
+        floor_ms = rec["step_seconds_bound_lower"] * 1e3
+        out[kind] = {"traced_flops_total": rec["traced_flops_total"],
+                     "card_flops": card_flops,
+                     "argument_bytes": rec["argument_bytes"],
+                     "card_argument_bytes": card_bytes,
+                     "traced_bytes_total": rec["traced_bytes_total"],
+                     "temp_bytes": rec["temp_bytes"],
+                     "dominant": rec["dominant"],
+                     "compute_ms": rec["compute_s"] * 1e3,
+                     "memory_ms": rec["memory_s"] * 1e3,
+                     "traced_ms": traced_ms, "floor_ms": floor_ms,
+                     "measured_ms": ms, "traced_share": traced_ms / ms,
+                     "floor_share": floor_ms / ms, "remat": c.remat,
+                     "trace_s": rec["trace_s"]}
+    del params
+    lm_free()
+    return out
+
+
+def phase_dryrun(here: str, ops, seed: int, lm: dict, train: dict,
+                 ident: str) -> dict:
+    """Phase 12: the dry run's S2RDF cell on the card (12a) and its LM
+    records against the card (12b)."""
+    t0 = time.perf_counter()
+    out = {"s2rdf": dryrun_s2rdf(ops, here), "lm": {}}
+    s2 = out["s2rdf"]
+    for layout in DRYRUN_LAYOUTS:
+        r = s2[layout]
+        log(f"  S2RDF cell, {layout}, scale {s2['scale']}, one NCCL rank: "
+            f"collective bytes {r['collectives']} (total "
+            f"{r['collective_bytes_per_chip']}, weighted "
+            f"{r['collective_bytes_weighted']}), collective_s "
+            f"{r['collective_s']:.6e} at 450 GB/s, traced bytes "
+            f"{r['traced_bytes_total']} over {r['aten_ops']} aten ops, "
+            f"caps {r['caps']}, overflowed {r['overflowed']}; the full "
+            f"run's {r['rows']} rows equal the single-device engine's "
+            f"[{ident}]")
+    log(f"  S2RDF cell: vp / extvp collective bytes "
+        f"{s2['vp_over_extvp']:.6f}; build {s2['build_s']} s; launches "
+        f"over the cell {s2['launches']} [{ident}]")
+    for name in DRYRUN_LM:
+        prefill_ms = lm["full_width"][name]["prefill_ms"]
+        step_ms = train["full_width"][name]["timed"]["remat_off"]["step_ms"]
+        out["lm"][name] = r = dryrun_lm(name, seed, prefill_ms, step_ms)
+        for kind, v in r.items():
+            log(f"  {name} {kind} at {LM_BATCH} × {LM_PREFILL_SEQ}, bf16"
+                f"{', remat off' if kind == 'train' else ''}: traced FLOPs "
+                f"{v['traced_flops_total']} == the card's, argument bytes "
+                f"{v['argument_bytes']} == the card's; the eager port's "
+                f"traced work {v['traced_ms']:.4f} ms ({v['dominant']}: "
+                f"products {v['compute_ms']:.4f} at the bf16 peak, traced "
+                f"traffic {v['memory_ms']:.4f} at the HBM rate; not a "
+                f"floor: fusing lowers it), the floor {v['floor_ms']:.4f} "
+                f"ms (one pass over arguments, outputs and peak "
+                f"temporaries), against {v['measured_ms']:.4f} ms "
+                f"measured in phase {'10a' if kind == 'prefill' else '11a'}"
+                f": {v['traced_share']:.4f} and {v['floor_share']:.4f} of "
+                f"it [{ident}]")
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"  phase 12: {out['seconds']} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=340.0)
@@ -4372,7 +4598,9 @@ def main() -> int:
         args, ops, ref, jexec, eb, Dataset, basic_queries)
     host_ext = phase_identity(ds, build_extvp)
     stage(f"[4] card against CPU at scale {args.scale}")
-    compare(ds, eng, queries, ops, skip={"C1", "C2"})
+    for line in DEPTH_CUTS:
+        log(f"  reduced: {line}")
+    compare(ds, eng, queries, ops, skip={"C1", "C2"}, first_only=True)
     stage(f"[6a] the distributed engine, one rank over NCCL, scale "
           f"{args.scale}")
     nums["bucket_count"], one_rank = phase_one_rank(
@@ -4463,6 +4691,8 @@ def main() -> int:
     lm = phase_lm(here, ops, args.seed)
     stage("[11] the LM training path")
     train = phase_train(here, ops, args.seed)
+    stage("[12] the dry run against the card")
+    dry = phase_dryrun(here, ops, args.seed, lm, train, ident)
     stage("[end]")
     print(json.dumps({"phase6": {"one_rank": one_rank, "two_ranks": {
         "backend": "gloo", "ranks": 2, "scale": args.compare_scale,
@@ -4482,6 +4712,7 @@ def main() -> int:
     print(json.dumps({"phase9": analysis9}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"dryrun": dry}), flush=True)
 
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE[k],
                 "replaces": TPU_KERNEL[k], "launches": v["launches"],

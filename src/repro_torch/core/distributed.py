@@ -69,6 +69,7 @@ from repro_torch.core.stats import Catalog
 from repro_torch.core.table import Table, round_up_pow2
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import counters
 from repro_torch.rdf.dictionary import PAD
 
 __all__ = ["DistBindings", "DistributedExecutor", "shard_table",
@@ -109,6 +110,7 @@ def _all_gather_cat(t: torch.Tensor, group) -> torch.Tensor:
     if t.numel() == 0:
         return t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
     parts = [torch.empty_like(t) for _ in range(size)]
+    counters.note("all-gather", t)
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
@@ -207,6 +209,7 @@ def repartition(data: torch.Tensor, n: torch.Tensor, key_col: int, group,
     send[slot.reshape(-1)] = data[_rows(batch, dev), order].reshape(-1, k)
     send = send[:-1]
     recv = torch.empty_like(send)
+    counters.note("all-to-all", send)
     dist.all_to_all_single(recv, send, group=group)
     exchanges["all_to_all"] += 1
     exchanges["buffer_bytes"] += send.numel() * send.element_size()
@@ -738,6 +741,7 @@ class DistributedExecutor:
         head = torch.cat([ovf.to(_I64),
                           torch.where(mine, n.to(_I64)[:, None], 0),
                           torch.where(mine, sent[:, None], 0)], dim=1)
+        counters.note("all-reduce", head)
         dist.all_reduce(head, op=dist.ReduceOp.MAX, group=self.group)
         head = head.cpu().numpy()
         slots = head.shape[1] - 2 * size
@@ -763,8 +767,9 @@ class DistributedExecutor:
                 parts = [torch.empty((batch, top, k), dtype=data.dtype,
                                      device=data.device)
                          for _ in range(self.n_shards)]
-                dist.all_gather(parts, data[:, :top].contiguous(),
-                                group=self.group)
+                mine = data[:, :top].contiguous()
+                counters.note("all-gather", mine)
+                dist.all_gather(parts, mine, group=self.group)
                 data = torch.stack(parts, dim=1).view(batch, -1, k)
         if not k or not counts.max(initial=0):
             return [np.zeros((int(c.sum()), k), dtype=np.int32)
@@ -848,6 +853,48 @@ class DistributedExecutor:
 
     def _final_cols(self) -> Tuple[str, ...]:
         return self._out_vars
+
+    def lower(self, caps: Optional[Sequence[int]] = None
+              ) -> Dict[str, object]:
+        """The counterpart of the reference's ``lower(caps)``: what one
+        launch of this plan costs this rank, at ``caps`` (``None``: the
+        current caps), read from the launch itself.  One attempt of the
+        default binding runs (no retry), then, unless a slot overflowed,
+        the result gather, under :func:`repro_torch.obs.counters.record`
+        and :class:`repro_torch.obs.counters.OpCounter`.  The
+        reference lowers at those caps without running, so an overflow
+        does not make the record wrong; it is reported as
+        ``overflowed``.  Every rank of the group must call it, in one
+        order.
+
+        Returns ``caps``, ``overflowed``, ``collectives`` (the entries),
+        ``traced_bytes`` and ``aten_ops`` (this rank's aten operators and
+        the bytes they read and write; the hand-written kernels are not
+        aten operators, so on the card their traffic is not in it),
+        ``peak_bytes`` (the most bytes the attempt allocated that were
+        live at once), ``argument_bytes`` (this rank's table shards,
+        numeric keys, bounds and filter constants on the device) and
+        ``output_bytes`` (the attempt's rows, counts and flags)."""
+        caps = tuple(self.caps if caps is None else caps)
+        inp = self._device_inputs
+        bj = self._to_device(self._default_bounds[None])
+        fj = self._to_device(self.fconsts_from_mapping(None)[None])
+        args = list(inp.rows) + list(inp.ns) + [inp.values, bj, fj]
+        with counters.record() as entries, counters.OpCounter() as counter:
+            data, n, ovf, sent = self._shard_program(caps, inp, bj, fj)
+            flags, ns, _ = self._sync(n, ovf, sent)
+            overflowed = bool(flags.any())
+            if not overflowed:
+                self._collect(data, ns)
+        return {"caps": list(caps), "overflowed": overflowed,
+                "collectives": entries, "traced_bytes": counter.bytes,
+                "aten_ops": counter.ops, "peak_bytes": counter.peak,
+                "argument_bytes": sum(_nbytes(t) for t in args),
+                "output_bytes": sum(_nbytes(t) for t in (data, n, ovf))}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ serving layer's ``RuntimeConfig``, ``ServerMetrics`` and
 ``SparqlServer``."""
 
 from repro_torch.engine.backends import (
-    ExecutionContext, PreparedQuery, TorchBackend,
+    ExecutionBackend, ExecutionContext, PreparedQuery, TorchBackend,
+    available_backends, create_backend, register_backend,
 )
 from repro_torch.engine.dataset import Dataset
 from repro_torch.engine.engine import (
@@ -16,6 +17,8 @@ from repro_torch.engine.template import (
 from repro_torch.runtime import RuntimeConfig
 
 __all__ = ["Dataset", "Engine", "Result", "Bindings", "ExecutionContext",
+           "ExecutionBackend", "register_backend", "create_backend",
+           "available_backends",
            "PreparedQuery", "TorchBackend", "PlanCache", "resolve_device",
            "ConstantBinding", "QueryTemplate", "template_signature",
            "RuntimeConfig", "ServerMetrics", "SparqlServer"]

@@ -17,6 +17,12 @@ Three backends:
 * ``"distributed"`` — the executor of :mod:`repro_torch.core.distributed`
   over the ranks of a ``torch.distributed`` process group.
 
+Backends live in a registry of factories by name
+(:func:`register_backend`, :func:`create_backend`,
+:func:`available_backends`): ``Engine`` resolves its backend names
+there, so a backend registered under a new name is served by the engine
+with no call-site change.
+
 The two device backends compile for the ``"extvp"``, ``"vp"`` and
 ``"tt"`` layouts.  A template they cannot express — the host-only
 ``"pt"`` layout, a node kind outside the device fragment, or a
@@ -38,7 +44,7 @@ and the executor opens one ``device.launch`` span per attempt.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +68,10 @@ from repro_torch.engine.template import (
 from repro_torch.kernels.build import KernelBuildError
 from repro_torch.kernels.ops import KernelLaunchError
 
-__all__ = ["ExecutionContext", "PreparedQuery", "EagerBackend",
-           "TorchBackend", "DistributedBackend", "is_device_error"]
+__all__ = ["ExecutionContext", "PreparedQuery", "ExecutionBackend",
+           "EagerBackend", "TorchBackend", "DistributedBackend",
+           "is_device_error", "register_backend", "create_backend",
+           "available_backends"]
 
 _NO_BINDING = ConstantBinding(mapping={}, missing=False)
 
@@ -291,7 +299,17 @@ class _VectorizedPrepared(PreparedQuery):
         return results
 
 
-class EagerBackend:
+class ExecutionBackend:
+    """Protocol: ``prepare(template, ctx) -> PreparedQuery``."""
+
+    name: str = "?"
+
+    def prepare(self, template: QueryTemplate,
+                ctx: ExecutionContext) -> PreparedQuery:
+        raise NotImplementedError
+
+
+class EagerBackend(ExecutionBackend):
     """The host numpy engine: every template, every layout."""
 
     name = "eager"
@@ -301,7 +319,7 @@ class EagerBackend:
         return _EagerPrepared(template, ctx)
 
 
-class TorchBackend:
+class TorchBackend(ExecutionBackend):
     """The full graph-pattern fragment — BGP/FILTER/OPTIONAL/UNION cores
     plus unbound-predicate (triples-table) scans, under any modifier
     spine (see :func:`repro_torch.core.modifiers.peel_spine`) — compiles
@@ -362,3 +380,34 @@ class DistributedBackend(TorchBackend):
                                  dual_partition=self.dual_partition,
                                  spine=spine, device=ctx.device)
         return _DistributedPrepared(template, ctx, ex)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable[[], ExecutionBackend]] = {}
+
+
+def register_backend(name: str,
+                     factory: Callable[[], ExecutionBackend]) -> None:
+    """Register (or replace) a backend under a string key."""
+    _REGISTRY[name] = factory
+
+
+def create_backend(name: str) -> ExecutionBackend:
+    try:
+        return _REGISTRY[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; available: {available_backends()}"
+        ) from None
+
+
+def available_backends() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+register_backend("eager", EagerBackend)
+register_backend("torch", TorchBackend)
+register_backend("distributed", DistributedBackend)

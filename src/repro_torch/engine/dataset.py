@@ -47,6 +47,7 @@ from repro_torch.core.stats import Catalog, _m2, build_catalog
 from repro_torch.core.table import Table
 from repro_torch.core.vp import KINDS, ExtVPBuild
 from repro_torch.engine.engine import Engine, resolve_device
+from repro_torch.engine.result import Result
 
 __all__ = ["Dataset"]
 
@@ -332,6 +333,12 @@ class Dataset:
             if runtime is None:
                 self._engines[key] = eng
         return eng
+
+    def query(self, qtext: str, backend: str = "torch", device=None,
+              layout: str = "extvp", group=None) -> Result:
+        """One-shot convenience: ``ds.engine(backend).query(qtext)``."""
+        return self.engine(backend, device=device, layout=layout,
+                           group=group).query(qtext)
 
     @property
     def n_triples(self) -> int:

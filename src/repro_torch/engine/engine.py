@@ -43,7 +43,7 @@ own runtimes are stable: here we cache *compilation*, never results.
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,30 +55,31 @@ from repro_torch.core.algebra import BGP
 from repro_torch.core.modifiers import peel_spine
 from repro_torch.device import resolve_device
 from repro_torch.engine.backends import (
-    DistributedBackend, EagerBackend, ExecutionContext, PreparedQuery,
-    TorchBackend, is_device_error,
+    DistributedBackend, ExecutionBackend, ExecutionContext, PreparedQuery,
+    create_backend, is_device_error,
 )
 from repro_torch.engine.result import Result
 from repro_torch.engine.template import (
     QueryTemplate, _normalize, rebind_plan, template_signature,
 )
-from repro_torch.obs import LogHistogram, Tracer
+from repro_torch.obs import LogHistogram, Tracer, counters
 from repro_torch.obs.tracer import TraceContext
 from repro_torch.runtime import BackendRouter, BatchTuner, RouteDecision, \
     RuntimeConfig
 from repro_torch.runtime.config import runtime_config as _global_runtime_config
 
 __all__ = ["Engine", "ServerMetrics", "PlanCache", "resolve_device",
-           "LAYOUTS", "BACKENDS"]
+           "LAYOUTS"]
 
 #: storage schemas a plan can compile for (paper §4); ``"pt"`` (the
 #: property table) runs on the host engine, so on a device backend its
 #: templates are served through a flagged eager fallback
 LAYOUTS = ("extvp", "vp", "tt", "pt")
-#: backend names ``Engine`` takes; ``"auto"`` routes each template
-#: signature among ``"eager"``, ``"torch"`` (and ``"distributed"`` when
-#: a group is given) by measured latency
-BACKENDS = ("eager", "torch", "distributed", "auto")
+
+# Compat sample windows (``latencies_ms`` / ``queue_ms`` below) keep only
+# the newest slice: the histograms are the percentile source and never
+# truncate.
+_MAX_SAMPLES = 8192
 
 # cardinality-drift reports cached per (prepared, binding): a hot
 # template's repeated traces must not re-run the host joins every time
@@ -122,18 +123,37 @@ class ServerMetrics:
     tracer: Optional[Tracer] = None
 
     def __post_init__(self) -> None:
-        # O(1) memory, O(1) record, exact counts, mergeable
+        # O(1) memory, O(1) record, exact counts, mergeable; the bounded
+        # deques back only the deprecated list views below
         self.latency_hist = LogHistogram()
         self.queue_hist = LogHistogram()
+        self._lat_samples: "deque" = deque(maxlen=_MAX_SAMPLES)
+        self._queue_samples: "deque" = deque(maxlen=_MAX_SAMPLES)
+
+    # -- compat views (deprecated) -----------------------------------------------
+    @property
+    def latencies_ms(self) -> List[float]:
+        """Newest latency samples as a list (bounded window).  Deprecated
+        read-only view: percentiles come from ``latency_hist``."""
+        return list(self._lat_samples)
+
+    @property
+    def queue_ms(self) -> List[float]:
+        """Newest queue-wait samples as a list (bounded window).
+        Deprecated read-only view: use ``queue_hist``."""
+        return list(self._queue_samples)
 
     def record_route(self, backend: str, count: int = 1) -> None:
         self.routed[backend] = self.routed.get(backend, 0) + count
 
     def record_latency(self, ms: float, count: int = 1) -> None:
         self.latency_hist.record(ms, count)
+        # the window never needs more than maxlen copies
+        self._lat_samples.extend([ms] * min(count, _MAX_SAMPLES))
 
     def record_queue(self, ms: float) -> None:
         self.queue_hist.record(ms)
+        self._queue_samples.append(ms)
 
     def runtime_report(self) -> Dict[str, object]:
         """The owning engine's router/tuner snapshot (empty when the
@@ -213,7 +233,9 @@ class Engine:
     """Execute SPARQL text over a Dataset through one backend — or
     through the adaptive runtime.
 
-    ``backend`` is ``"eager"`` (the host numpy engine), ``"torch"`` (one
+    ``backend`` is a registry key of
+    :func:`~repro_torch.engine.backends.register_backend`: ``"eager"``
+    (the host numpy engine), ``"torch"`` (one
     device), ``"distributed"`` (the ranks of the process group
     ``group``, ``None`` meaning the default group, which must be
     initialized; ``dual_partition`` adds the object-partitioned table
@@ -242,9 +264,6 @@ class Engine:
                  dual_partition: bool = False,
                  batch_shapes: Optional[Sequence[int]] = None,
                  runtime: Optional[RuntimeConfig] = None):
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; available: "
-                             f"{list(BACKENDS)}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; available: "
                              f"{list(LAYOUTS)}")
@@ -256,19 +275,20 @@ class Engine:
                 (["distributed"] if group is not None else [])
         else:
             names = [backend]
-        if dual_partition and "distributed" not in names:
+        chosen = [DistributedBackend(dual_partition)
+                  if n == "distributed" and dual_partition
+                  else create_backend(n) for n in names]
+        self._backends: Dict[str, ExecutionBackend] = \
+            {b.name: b for b in chosen}
+        if dual_partition and "distributed" not in self._backends:
             raise ValueError("dual_partition applies to the distributed "
                              "backend only")
-        if "distributed" in names and \
+        if "distributed" in self._backends and \
                 (not dist.is_available() or not dist.is_initialized()):
             raise ValueError(
                 "the distributed backend needs an initialized process "
                 "group: call torch.distributed.init_process_group(...) "
                 "first (nccl on the card, gloo on the CPU)")
-        factories = {"eager": EagerBackend, "torch": TorchBackend,
-                     "distributed": lambda: DistributedBackend(
-                         dual_partition)}
-        self._backends = {n: factories[n]() for n in names}
         self.auto = backend == "auto"
         self.device = resolve_device(device)
         # engines without an explicit runtime= share the process-wide
@@ -457,6 +477,7 @@ class Engine:
         dev = self.device if dist.get_backend(group) == "nccl" \
             else torch.device("cpu")
         t = torch.tensor([ms], dtype=torch.float64, device=dev)
+        counters.note("all-reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
         return float(t.item())
 

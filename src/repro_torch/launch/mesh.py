@@ -47,8 +47,11 @@ def require_ranks(mesh: Mesh, ranks: int) -> None:
 class HW:
     """Roofline constants of one NVIDIA H100 80GB HBM3 (SXM) at its 700 W
     power limit: NVIDIA's data-sheet figures (dense rates, no sparsity),
-    not measurements.  A card set below 700 W runs slower under load."""
+    not measurements.  A card set below 700 W runs slower under load.
+    ``NVLINK_BW`` is the divisor of the dry run's collective term (the
+    JAX package divides by its TPU's ICI link rate there)."""
 
     PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
     HBM_BW = 3.35e12              # B/s
     HBM_BYTES = 80 * 2**30        # 80 GiB
+    NVLINK_BW = 450e9             # B/s a direction, NVLink 4 (900 GB/s both)

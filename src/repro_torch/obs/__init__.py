@@ -17,7 +17,10 @@ names), all wired through
 * :mod:`repro_torch.obs.histogram` — O(1)-memory log-bucketed latency
   histograms backing ``ServerMetrics`` percentiles and the Prometheus
   text exposition (:mod:`repro_torch.obs.prometheus`,
-  ``ServerMetrics.prometheus()``, ``launch/serve.py --metrics-out``).
+  ``ServerMetrics.prometheus()``, ``launch/serve.py --metrics-out``);
+* :mod:`repro_torch.obs.counters` — what a run moves: the collectives
+  the executors issue (``record`` / ``note``) and the bytes of its aten
+  operators (``OpCounter``), read by the dry run (``launch/dryrun.py``).
 """
 
 from repro_torch.obs.histogram import LogHistogram

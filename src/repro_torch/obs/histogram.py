@@ -153,6 +153,20 @@ class LogHistogram:
             if c:
                 yield _upper_edge(i), cum
 
+    def to_dict(self) -> Dict[str, object]:
+        """JSON-friendly snapshot (only occupied buckets)."""
+        return {
+            "count": self.count,
+            "sum_ms": self.sum_ms,
+            "min_ms": self.min_ms,
+            "max_ms": self.max_ms,
+            "p50_ms": self.percentile(50),
+            "p90_ms": self.percentile(90),
+            "p99_ms": self.percentile(99),
+            "buckets": [[edge, cum] for edge, cum
+                        in self.cumulative_buckets()],
+        }
+
     def __len__(self) -> int:
         return self.count
 

@@ -90,6 +90,9 @@ class FlightRecorder:
                     })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
+    def to_json(self) -> str:
+        return json.dumps(self.chrome_trace())
+
     def trace_dicts(self) -> List[Dict[str, Any]]:
         """One nested dict per trace (the JSONL row shape)."""
         out = []

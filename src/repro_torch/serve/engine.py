@@ -36,7 +36,8 @@ from typing import List, Optional, Sequence, Union
 from repro_torch.core.stats import Catalog
 from repro_torch.device import resolve_device
 from repro_torch.engine import Dataset, Engine, Result, template_signature
-from repro_torch.engine.engine import BACKENDS, ServerMetrics
+from repro_torch.engine.backends import available_backends, create_backend
+from repro_torch.engine.engine import ServerMetrics
 from repro_torch.serve.batcher import MicroBatcher, PendingQuery
 
 __all__ = ["SparqlServer", "ServerMetrics", "MicroBatcher", "PendingQuery",
@@ -70,9 +71,8 @@ class SparqlServer:
                  runtime=None):
         # checked before the store boots: a server must not load a
         # catalog for a backend it cannot run
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; available: "
-                             f"{list(BACKENDS)}")
+        if backend != "auto" and backend not in available_backends():
+            create_backend(backend)     # raises: unknown backend
         if isinstance(source, (str, os.PathLike)):
             self.dataset = Dataset.load(source, eager=eager_load,
                                         verify=verify_store,

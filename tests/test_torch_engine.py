@@ -351,3 +351,91 @@ def test_unported_paths_raise_and_are_counted():
         np.testing.assert_array_equal(got.data, want.data)
     assert eng.metrics.device_fallbacks == 2
     assert len(eng.cache) == 1
+
+
+# ---------------------------------------------------------------------------
+# The facade's extension point: the backend registry (the counterparts of
+# tests/test_engine_api.py's registry tests) and Dataset.query
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_pair(watdiv_small):
+    cat, d, sch = watdiv_small
+    rds = RDataset(catalog=cat, dictionary=d, schema=sch)
+    return rds, twin(rds)
+
+
+def test_builtin_backends_registered():
+    from repro.engine import available_backends as ref_available
+    from repro_torch.engine import available_backends
+    # the reference's one-device backend is "jit", the port's "torch"
+    assert ref_available() == ["distributed", "eager", "jit"]
+    assert available_backends() == ["distributed", "eager", "torch"]
+
+
+def test_unknown_backend_rejected_as_the_reference(small_pair):
+    from repro.engine import create_backend as ref_create
+    from repro_torch.engine import create_backend
+    rds, ds = small_pair
+    with pytest.raises(ValueError, match="unknown backend") as want:
+        rds.engine("no-such-engine").query("SELECT * WHERE { ?s ?p ?o }")
+    with pytest.raises(ValueError, match="unknown backend") as got:
+        ds.engine("no-such-engine").query("SELECT * WHERE { ?s ?p ?o }")
+    ref_msg, port_msg = str(want.value), str(got.value)
+    assert ref_msg.split(";")[0] == port_msg.split(";")[0] == \
+        "unknown backend 'no-such-engine'"
+    with pytest.raises(ValueError) as direct:
+        create_backend("no-such-engine")
+    with pytest.raises(ValueError) as ref_direct:
+        ref_create("no-such-engine")
+    assert str(direct.value).split(";")[0] == \
+        str(ref_direct.value).split(";")[0]
+
+
+def test_custom_backend_pluggable(small_pair):
+    """A registered backend is served by ``Engine`` by name with no
+    call-site change, as the reference's; its answer equals the
+    reference's eager engine's."""
+    from repro_torch.engine import (
+        ExecutionBackend, create_backend, register_backend,
+    )
+    from repro_torch.engine import backends as _b
+    rds, ds = small_pair
+    eager = create_backend("eager")
+
+    class Probe(ExecutionBackend):
+        name = "probe"
+        prepared = 0
+
+        def prepare(self, template, ctx):
+            Probe.prepared += 1
+            return eager.prepare(template, ctx)
+
+    register_backend("probe", Probe)
+    try:
+        q = "SELECT * WHERE { ?u wsdbm:follows ?v }"
+        eng = ds.engine("probe")
+        assert eng.backend == "probe"
+        res = eng.query(q)
+        eng.query(q)
+        assert len(res) > 0
+        assert Probe.prepared == 1
+        want = rds.engine("eager").query(q)
+        assert res.cols == want.cols
+        assert res.as_multiset() == want.as_multiset()
+    finally:
+        _b._REGISTRY.pop("probe", None)
+
+
+def test_dataset_query_one_shot(small_pair):
+    """``Dataset.query`` is ``ds.engine(backend).query(qtext)``, as the
+    reference's; the answer equals the reference's jit engine's."""
+    rds, ds = small_pair
+    q = "SELECT * WHERE { ?u wsdbm:follows ?v . ?v wsdbm:likes ?p }"
+    got = ds.query(q, device="cpu")
+    want = rds.query(q, backend="jit")
+    assert got.cols == want.cols
+    np.testing.assert_array_equal(got.data, want.data)
+    eager = ds.query(q, backend="eager")
+    assert sorted(map(tuple, eager.data.tolist())) == \
+        sorted(map(tuple, rds.query(q).data.tolist()))

@@ -197,6 +197,27 @@ print("BAD", bad)
 """
 
 
+_DRYRUN_CHILD = r"""
+import os, sys
+# torch's own lazy import of torch._dynamo (the first call of a function
+# it wraps, here inside a dispatch mode) sets TORCHINDUCTOR_CACHE_DIR to
+# its default: done before the snapshot, so the check sees only what the
+# port's modules set
+import torch._dynamo
+before = dict(os.environ)
+import repro_torch.launch.collectives
+import repro_torch.launch.dryrun as D
+from repro_torch.configs import get
+recs = D.run_cell("qwen1.5-0.5b", "train_4k", ["single", "multi"],
+                  cfg=get("qwen1.5-0.5b").reduced())
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("STATUS", [r["status"] for r in recs])
+print("ENV", dict(os.environ) == before)
+print("BAD", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -274,6 +295,19 @@ def test_lm_serving_path_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "ROWS 1536" in out.stdout, out.stdout
+
+
+def test_dry_run_imports_neither_jax_nor_repro():
+    """The dry run and the collective accounting: importing them and
+    running one reduced LM cell leaves JAX and the JAX package out of
+    ``sys.modules`` and ``os.environ`` as it was (the JAX package's dry
+    run sets ``XLA_FLAGS`` at import; the port's sets nothing)."""
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "ENV True" in out.stdout, out.stdout
+    assert "STATUS ['ok', 'ok']" in out.stdout, out.stdout
 
 
 def test_lm_launcher_decodes_on_the_cpu():

@@ -495,3 +495,44 @@ class TestEngineTracing:
         assert 'repro_tuner_shape_active{shape="32"} 1' in text
         # the whole page, router and tuner families included
         assert text == ref.metrics.prometheus().replace('"jit"', '"torch"')
+
+
+# ------------------------------------------- the reference's remaining names
+
+def test_histogram_to_dict_matches_reference():
+    samples = [0.3, 1.0, 1.0, 7.5, 42.0, 42.0, 900.0]
+    assert both(lambda ns: _hist_of(ns, samples).to_dict()) == \
+        json.loads(json.dumps(_hist_of(PORT, samples).to_dict()))
+    assert both(lambda ns: ns["LogHistogram"]().to_dict())["count"] == 0
+
+
+def test_recorder_to_json_matches_reference():
+    def scenario(ns):
+        clock = FakeClock()
+        rec = ns["FlightRecorder"](ring=4, slow_ms=5.0, slow_keep=2)
+        for tid, dur in ((1, 0.002), (2, 0.009), (3, 0.001)):
+            ctx = ns["TraceContext"](tid, clock, None, q=tid)
+            sid = ctx.start("execute", rows=tid)
+            clock.advance(dur)
+            ctx.end(sid)
+            ctx.finish()
+            rec.add(ctx)
+        return rec.to_json()
+    text = both(scenario)
+    assert json.loads(text)["traceEvents"]
+
+
+def test_server_metrics_sample_views_match_reference():
+    """The deprecated bounded views ``latencies_ms`` / ``queue_ms``: the
+    newest samples, the window bounded as in the reference."""
+    def scenario(ns):
+        m = ns["ServerMetrics"]()
+        m.record_latency(3.0, count=3)
+        m.record_latency(5.5)
+        for ms in (0.5, 0.25):
+            m.record_queue(ms)
+        m.record_latency(1.0, count=10_000)
+        return (m.latencies_ms[:5], len(m.latencies_ms), m.queue_ms,
+                m.latency_hist.count)
+    got = both(scenario)
+    assert got[1] == 8192 and got[3] == 10_004
