@@ -1,0 +1,5 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at the
+full 700 W power limit)."""
+
+HBM_BYTES_PER_S = 3.35e12     # HBM3 memory rate
+HBM_BYTES = 80e9              # device memory
