@@ -2322,10 +2322,10 @@ SERVE_CUT_INSTANCES = 3
 #: templates whose batch does not fit the card at ``--scale``: a batch
 #: holds every binding's intermediates at once (B times one query's), and
 #: at scale 340 one query of C1 or C2 peaks at 32.3 and 32.5 GiB, so their
-#: 3 instances padded to 4 run out of the card's 79.2 GiB
-#: (tools/batch_memory.py).  Phase 3 runs no ``query_batch`` of them and
-#: phase 7a serves them one instance a batch; phases 4 and 7b at
-#: ``--compare-scale`` batch them.
+#: 3 instances padded to 4 run out of the card's 79.2 GiB (measured
+#: by tools/batch_memory.py, a tool since removed).  Phase 3 runs no
+#: ``query_batch`` of them and phase 7a serves them one instance a
+#: batch; phases 4 and 7b at ``--compare-scale`` batch them.
 BATCH_CUT = ("C1", "C2")
 #: instances a template sends in 7a's second pass, a partial bucket as a
 #: latency-bound flush drains it under light load (padded to 8)

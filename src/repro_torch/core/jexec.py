@@ -1329,7 +1329,11 @@ class PlanExecutor:
         overflow flags.  A sampled request's ``trace`` (a batch's lead
         request) gets one ``device.launch`` span per attempt, ended after
         that sync (the copy of the head waits for the stream), so a
-        traced launch adds no synchronization."""
+        traced launch adds no synchronization; inside it a ``head_sync``
+        span over the copy of the head: the time the host waited on the
+        stream.  After the last attempt a ``copyback`` span covers the
+        copy of every binding's rows, with their ``bytes``, ``rows`` and
+        ``bindings``."""
         inp = self._device_inputs
         bj, fj = self._to_device(bb), self._to_device(fb)
         batch = len(bb)
@@ -1341,17 +1345,25 @@ class PlanExecutor:
                 if trace is not None else None
             shared = self._hoist(inp, batch) if hoist else {}
             data, n, ovf = self._program(caps, inp, bj, fj, shared)
-            head = torch.cat([n[:, None], ovf.to(_I32)], dim=1).cpu().numpy()
+            head = torch.cat([n[:, None], ovf.to(_I32)], dim=1)
+            hsid = trace.start("head_sync") if trace is not None else None
+            head = head.cpu().numpy()
             ovf_any = head[:, 1:].any(axis=0)
             if trace is not None:
+                trace.end(hsid)
                 trace.end(sid, overflow=bool(ovf_any.any()))
             if not ovf_any.any():
                 # keep grown caps: a hot template must not pay the
                 # overflow->retry double-launch on every request
                 self.caps = list(caps)
                 cols = self._final_cols()
-                return [(data[i, :int(head[i, 0])].cpu().numpy(), cols)
-                        for i in range(batch)]
+                csid = trace.start("copyback") if trace is not None else None
+                out = [(data[i, :int(head[i, 0])].cpu().numpy(), cols)
+                       for i in range(batch)]
+                if trace is not None:
+                    trace.end(csid, bytes=sum(a.nbytes for a, _ in out),
+                              rows=int(head[:, 0].sum()), bindings=batch)
+                return out
             caps = double_caps(caps, ovf_any, self._n_pipeline)
         raise RuntimeError("join capacity overflow after retries" +
                            (" (batched)" if hoist else ""))

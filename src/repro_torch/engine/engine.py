@@ -631,8 +631,11 @@ class Engine:
             lead = traced[0][1] if traced else None
             shape = self.bucket_shape(len(chunk)) if pad else len(chunk)
             padded = chunk + [chunk[-1]] * (shape - len(chunk))
+            # the chunk's work is the lead's: only its span opens a
+            # profiler range
             open_sids = [
-                (t, t.start("execute", backend=decision.backend,
+                (t, t.start("execute", mirror=t is lead,
+                            backend=decision.backend,
                             batch=len(chunk), shape=shape,
                             shared_launch=t is not lead))
                 for _, t in traced]
@@ -677,17 +680,34 @@ class Engine:
         come back in submission order.  This is the synchronous core the
         serving layer's micro-batcher drains into.  ``traces`` lets the
         batcher hand over trace contexts begun at submit time (so the
-        queue span is part of the trace); called directly, the engine
-        samples its own."""
+        queue span is part of the trace) and finishes them itself, after
+        its own bookkeeping; called directly, the engine samples and
+        finishes its own.
+
+        The first traced request of each signature group gets a
+        ``front`` span (``requests``: the group's size) over its
+        routing, plan-cache lookups (``parse`` / ``plan`` / ``verify``
+        on a miss) and constant binding, closed before its first
+        ``execute``; the first group's also covers the grouping, when
+        the batch's first request is traced."""
         tr = self.tracer
-        if traces is None:
+        tracing = tr is not None and tr.active
+        own = traces is None
+        if own:
             traces = [tr.begin(q) for q in qtexts] \
-                if tr is not None and tr.active else [None] * len(qtexts)
+                if tracing else [None] * len(qtexts)
+        # the first group's lead is traces[0] whenever that is traced
+        front = traces[0].start("front") \
+            if tracing and traces and traces[0] is not None else None
         results: List[Optional[Result]] = [None] * len(qtexts)
         sig_groups: "OrderedDict[str, List[int]]" = OrderedDict()
         for i, qtext in enumerate(qtexts):
             sig_groups.setdefault(template_signature(qtext), []).append(i)
         for sig, idxs in sig_groups.items():
+            lead = next((traces[i] for i in idxs if traces[i] is not None),
+                        None) if tracing else None
+            if lead is not None and front is None:
+                front = lead.start("front")
             # ONE routing decision per signature group: the whole group
             # lands on one backend, and the router costs one decision per
             # launch group, not one per request
@@ -704,10 +724,15 @@ class Engine:
                                                  trace=traces[i])
                 groups.setdefault(id(prepared),
                                   (decision, prepared, []))[2].append(i)
-            for decision, prepared, sub in groups.values():
-                bindings = [prepared.template.binding_for(qtexts[i])
-                            if prepared.template.rebindable else None
-                            for i in sub]
+            bound = [(decision, prepared, sub,
+                      [prepared.template.binding_for(qtexts[i])
+                       if prepared.template.rebindable else None
+                       for i in sub])
+                     for decision, prepared, sub in groups.values()]
+            if front is not None:
+                lead.end(front, requests=len(idxs))
+                front = None
+            for decision, prepared, sub, bindings in bound:
                 group_results = self._run_group(sig, decision, prepared,
                                                 bindings,
                                                 [traces[i] for i in sub])
@@ -716,15 +741,18 @@ class Engine:
                     self._record(prepared, binding, res)
                     if traces[i] is not None:
                         self._trace_finish(traces[i], prepared, binding,
-                                           decision)
+                                           decision, finish=own)
         return results  # type: ignore[return-value]
 
     # -- trace support ---------------------------------------------------------
     def _trace_finish(self, trace: TraceContext, prepared: PreparedQuery,
-                      binding, decision: RouteDecision) -> None:
+                      binding, decision: RouteDecision,
+                      finish: bool = True) -> None:
         """Join the cardinality-drift report onto the trace's launch
         spans (the host engine's ``host.execute`` span when nothing
-        launched) and hand the finished trace to the flight recorder."""
+        launched) and hand the finished trace to the flight recorder;
+        with ``finish`` False the trace only takes its backend and its
+        owner finishes it."""
         if self.config.trace_cardinality:
             drift = self._cardinality_drift(prepared, binding)
             if drift is not None:
@@ -733,7 +761,10 @@ class Engine:
                     trace.annotate_named("host.execute",
                                          cardinalities=drift)
                 trace.annotate(cardinalities=drift)
-        trace.finish(backend=decision.backend)
+        if finish:
+            trace.finish(backend=decision.backend)
+        else:
+            trace.annotate(backend=decision.backend)
 
     def _cardinality_drift(self, prepared: PreparedQuery, binding
                            ) -> Optional[List[Dict[str, object]]]:

@@ -19,6 +19,23 @@ is 0.  Sampling is deterministic stride sampling (1 in
 ``round(1/rate)`` requests), not random — reproducible under test and
 immune to unlucky streaks.
 
+Two kinds of span share a trace.  Host work (:meth:`TraceContext.start`)
+nests on a stack of open spans, so a span's parent falls out of call
+order and ending a span closes whatever is still open inside it.  Waits
+(:meth:`TraceContext.start_wait`: the batcher's ``queue``; the root
+``request`` itself) stay off that stack, so host work may begin and end
+inside a wait without closing it.
+
+While ``torch.profiler`` records, every host-work span also opens a
+profiler range named ``repro.<span>`` and closes it with the span, so
+the device trace and the program's spans share a clock: an idle gap of
+the card is named by the program stage around it.  :meth:`finish` hands
+a trace to the tracer inside a ``repro.finish`` range: tracing's own
+cost, after the trace's spans have closed.  The gate is
+``torch.autograd.profiler._is_profiler_enabled``, read at each
+:meth:`~TraceContext.start`; with the profiler off a span enters no
+range.
+
 Finished traces flow into the tracer's
 :class:`~repro_torch.obs.recorder.FlightRecorder` (ring + slow-query
 reservoir) and feed per-stage :class:`~repro_torch.obs.histogram.LogHistogram`
@@ -30,10 +47,16 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _profiler
+
 from repro_torch.obs.histogram import LogHistogram
 from repro_torch.obs.recorder import FlightRecorder
 
 __all__ = ["Span", "TraceContext", "Tracer"]
+
+#: the prefix of the profiler range a host-work span opens
+RANGE_PREFIX = "repro."
 
 
 class Span:
@@ -65,15 +88,17 @@ class Span:
 class TraceContext:
     """The spans and events of ONE sampled request.
 
-    Span 0 is the root (``request``); :meth:`start`/:meth:`end` manage a
-    stack of open spans so nesting falls out of call order.  The context
-    is carried *by argument* through the engine, batcher, prepared
-    queries and executors — there is no thread-local or global state, so
-    the untraced path never looks anything up.
+    Span 0 is the root (``request``), a wait that :meth:`finish` closes.
+    :meth:`start`/:meth:`end` manage a stack of open host-work spans so
+    nesting falls out of call order; :meth:`start_wait` records a span
+    off that stack.  The context is carried *by argument* through the
+    engine, batcher, prepared queries and executors — there is no
+    thread-local or global state, so the untraced path never looks
+    anything up.
     """
 
     __slots__ = ("trace_id", "clock", "spans", "_open", "_tracer",
-                 "duration_ms")
+                 "duration_ms", "_ranges")
 
     def __init__(self, trace_id: int, clock, tracer: "Optional[Tracer]",
                  name: str = "request", **attrs: Any):
@@ -83,37 +108,62 @@ class TraceContext:
         self.duration_ms: Optional[float] = None
         root = Span(0, name, None, clock(), attrs)
         self.spans: List[Span] = [root]
-        self._open: List[int] = [0]
+        self._open: List[int] = []
+        #: sid -> the profiler range its span holds open
+        self._ranges: Dict[int, Any] = {}
 
     @property
     def root(self) -> Span:
         return self.spans[0]
 
     # -- spans -----------------------------------------------------------------
-    def start(self, name: str, **attrs: Any) -> int:
-        """Open a child span under the innermost open span; returns its
-        sid for :meth:`end`."""
+    def start(self, name: str, *, mirror: bool = True, **attrs: Any) -> int:
+        """Open a host-work span under the innermost open span (the root
+        when none is); returns its sid for :meth:`end`.  While the
+        profiler records, the span also opens the range
+        ``repro.<name>``, unless ``mirror`` is False (work another
+        trace's span already covers)."""
         sid = len(self.spans)
         parent = self._open[-1] if self._open else 0
         self.spans.append(Span(sid, name, parent, self.clock(), attrs))
         self._open.append(sid)
+        if mirror and _profiler._is_profiler_enabled:
+            self._ranges[sid] = torch.ops.profiler._record_function_enter_new(
+                RANGE_PREFIX + name, None)
+        return sid
+
+    def start_wait(self, name: str, **attrs: Any) -> int:
+        """Open a wait: a child of the root that stays off the stack of
+        open spans (host work begun and ended meanwhile does not close
+        it) and opens no profiler range.  :meth:`end` or :meth:`finish`
+        closes it."""
+        sid = len(self.spans)
+        self.spans.append(Span(sid, name, 0, self.clock(), attrs))
         return sid
 
     def end(self, sid: int, **attrs: Any) -> None:
-        """Close span ``sid`` (and anything left open inside it — a
-        child that escaped its ``end`` must not dangle past its parent)."""
+        """Close span ``sid``.  Ending a span on the stack (or the root)
+        closes anything left open inside it — a child that escaped its
+        ``end`` must not dangle past its parent; ending a wait touches
+        nothing else."""
         t = self.clock()
-        while self._open and self._open[-1] != sid:
-            inner = self.spans[self._open.pop()]
-            if inner.t1 is None:
-                inner.t1 = t
-        if self._open and self._open[-1] == sid:
-            self._open.pop()
+        stack = self._open
+        if sid == 0 or sid in stack:
+            while stack and stack[-1] != sid:
+                self._close(stack.pop(), t)
+            if stack:
+                stack.pop()
+        self._close(sid, t)
+        if attrs:
+            self.spans[sid].attrs.update(attrs)
+
+    def _close(self, sid: int, t: float) -> None:
         span = self.spans[sid]
         if span.t1 is None:
             span.t1 = t
-        if attrs:
-            span.attrs.update(attrs)
+        handle = self._ranges.pop(sid, None)
+        if handle is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(handle)
 
     # -- events / annotations --------------------------------------------------
     def event(self, name: str, **attrs: Any) -> None:
@@ -138,14 +188,27 @@ class TraceContext:
         return n
 
     def finish(self, **attrs: Any) -> None:
-        """Close the root (and any stragglers) and hand the complete
-        trace to the tracer's recorder/aggregates."""
+        """Close the root (and any stragglers, open waits included) and
+        hand the complete trace to the tracer's recorder/aggregates."""
         if self.root.t1 is not None:
             return                      # already finished (idempotent)
         self.end(0, **attrs)
+        t = self.root.t1
+        for span in self.spans:
+            if span.t1 is None:
+                span.t1 = t
         self.duration_ms = self.root.duration_ms
         if self._tracer is not None:
+            # the tracer's own cost, after every span has closed, gets a
+            # range of its own, so the device trace does not read it as
+            # time outside the program
+            handle = torch.ops.profiler._record_function_enter_new(
+                RANGE_PREFIX + "finish", None) \
+                if _profiler._is_profiler_enabled else None
             self._tracer._finished(self)
+            if handle is not None:
+                torch.ops.profiler._record_function_exit._RecordFunction(
+                    handle)
 
 
 class Tracer:

@@ -90,6 +90,9 @@ class MicroBatcher:
         #: rank's clock
         self.latency_bound = "distributed" not in engine.backends
         self._queues: "OrderedDict[str, List[PendingQuery]]" = OrderedDict()
+        #: the trace of the request whose ``submit`` is running: a drain
+        #: nested in that call leaves it for the call's end to finish
+        self._submitting = None
 
     # -- queue state -----------------------------------------------------------
     def effective_max_batch(self) -> int:
@@ -121,60 +124,95 @@ class MicroBatcher:
     def submit(self, qtext: str) -> PendingQuery:
         """Enqueue one request; returns a handle that resolves when the
         request's bucket drains (size bound, latency bound, or explicit
-        flush)."""
-        sig = template_signature(qtext)
-        ticket = PendingQuery(self, qtext, sig)
+        flush).
+
+        A sampled request's trace gets a ``submit`` span over the call
+        (a flush it triggers included) and a ``queue`` wait, off the
+        span stack, from here until its bucket starts to drain.  A trace
+        drained within the call is finished as the call ends."""
         tr = self.engine.tracer
-        if tr.active:
-            ticket.trace = tr.begin(qtext, sig=sig)
-            if ticket.trace is not None:
-                ticket._queue_sid = ticket.trace.start("queue")
-        self._queues.setdefault(sig, []).append(ticket)
-        # Auto-flushes swallow execution errors: the caller of THIS submit
-        # must still receive its ticket; every failed request's ticket
-        # carries the error and result() re-raises it.
-        if len(self._queues[sig]) >= self.effective_max_batch():
-            try:
-                self.flush_group(sig)
-            except Exception:
-                pass
-        # latency bound is checked regardless of the size-bound branch: a
-        # hot template's full buckets must not starve another template's
-        # lone queued request past its deadline
-        if self.latency_bound:
-            self._flush_expired()
-        return ticket
+        trace = tr.begin(qtext) if tr.active else None
+        sid = ticket = None
+        if trace is not None:
+            sid = trace.start("submit")
+            self._submitting = trace
+        try:
+            sig = template_signature(qtext)
+            ticket = PendingQuery(self, qtext, sig)
+            if trace is not None:
+                trace.annotate(sig=sig)
+                ticket.trace = trace
+                ticket._queue_sid = trace.start_wait("queue")
+            self._queues.setdefault(sig, []).append(ticket)
+            # Auto-flushes swallow execution errors: the caller of THIS
+            # submit must still receive its ticket; every failed request's
+            # ticket carries the error and result() re-raises it.
+            if len(self._queues[sig]) >= self.effective_max_batch():
+                try:
+                    self.flush_group(sig)
+                except Exception:
+                    pass
+            # latency bound is checked regardless of the size-bound
+            # branch: a hot template's full buckets must not starve
+            # another template's lone queued request past its deadline
+            if self.latency_bound:
+                self._flush_expired()
+            return ticket
+        finally:
+            if trace is not None:
+                self._submitting = None
+                trace.end(sid)
+                if ticket is not None and ticket._result is not _UNSET:
+                    trace.finish()
 
     # -- draining --------------------------------------------------------------
     def flush_group(self, sig: str) -> int:
         """Drain one signature's bucket through a batched execution.  On
         an execution error every ticket of the bucket carries the error
         (``result()`` re-raises it) and the error propagates to the
-        flusher — tickets are never silently dropped."""
+        flusher — tickets are never silently dropped.
+
+        The group's first traced ticket gets a ``flush`` span over the
+        drain; every traced ticket's ``queue`` wait ends as it starts.
+        On success the drain finishes its traces after its bookkeeping,
+        all but that of a ``submit`` still running."""
         group = self._queues.pop(sig, [])
         if not group:
             return 0
+        lead = sid = None
         for ticket in group:
-            if ticket.trace is not None and ticket._queue_sid is not None:
-                ticket.trace.end(ticket._queue_sid, batch=len(group))
+            if ticket.trace is not None:
+                if lead is None:
+                    lead = ticket.trace
+                    sid = lead.start("flush", requests=len(group))
+                if ticket._queue_sid is not None:
+                    ticket.trace.end(ticket._queue_sid, batch=len(group))
         # the traces kwarg is only passed when something was actually
         # sampled — stubbed query_batch implementations without the
         # parameter keep working on the untraced path
         kwargs = {}
-        if any(t.trace is not None for t in group):
+        if lead is not None:
             kwargs["traces"] = [t.trace for t in group]
         try:
-            results = self.engine.query_batch(
-                [t.qtext for t in group], **kwargs)
-        except BaseException as exc:
-            for ticket in group:
-                ticket._error = exc
-            raise
-        now = self.clock()
-        for ticket, res in zip(group, results):
-            ticket._result = res
-            self.engine.metrics.record_queue(
-                (now - ticket.submitted_at) * 1e3)
+            try:
+                results = self.engine.query_batch(
+                    [t.qtext for t in group], **kwargs)
+            except BaseException as exc:
+                for ticket in group:
+                    ticket._error = exc
+                raise
+            now = self.clock()
+            for ticket, res in zip(group, results):
+                ticket._result = res
+                self.engine.metrics.record_queue(
+                    (now - ticket.submitted_at) * 1e3)
+        finally:
+            if lead is not None:
+                lead.end(sid)
+        for ticket in group:
+            if ticket.trace is not None \
+                    and ticket.trace is not self._submitting:
+                ticket.trace.finish()
         return len(group)
 
     def flush(self) -> int:

@@ -354,3 +354,229 @@ def test_launcher_needs_cuda_unless_asked_for_cpu(tmp_path):
     out = _launch("--scale", "0.05")
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert "served" not in out.stdout
+
+
+# ------------------------------------------- the port's own serving spans
+# (no reference counterpart: the batcher's ``submit`` and ``flush``, the
+# engine's ``front``, the executor's ``head_sync`` and ``copyback``, the
+# ``queue`` wait off the span stack, and the profiler ranges they open)
+
+class TickClock:
+    """A clock that moves one microsecond at every reading, so spans
+    opened one after the other never share an instant."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1e-6
+        return self.t
+
+
+@pytest.fixture(scope="module")
+def scale1():
+    return Dataset.watdiv(1.0, device="cpu")
+
+
+def traced_server(ds, rate=1.0, **kw):
+    kw.setdefault("flush_ms", 1e9)
+    return SparqlServer(ds, device="cpu", runtime=RuntimeConfig(
+        trace_sample_rate=rate, clock=TickClock()), **kw)
+
+
+ALL_LIKES = "SELECT * WHERE { ?u wsdbm:likes ?p }"
+
+
+def _edges(trace):
+    """(span, its parent's name) of every span but the root."""
+    by = {s.sid: s for s in trace.spans}
+    return {(s.name, by[s.parent].name) for s in trace.spans[1:]}
+
+
+def _one(trace, name):
+    found = [s for s in trace.spans if s.name == name]
+    assert len(found) == 1, (name, trace.spans)
+    return found[0]
+
+
+def _serve_scenario(srv):
+    """A bucket of four that the fourth submit drains, one request that
+    its own ``result()`` drains, and one whose submit drains it."""
+    tickets = [srv.submit(q) for q in _instances(4)]
+    assert all(t.done() for t in tickets)
+    single = srv.submit(ALL_LIKES)
+    assert not single.done()
+    single.result()
+    srv.batcher.max_batch = 1
+    nested = srv.submit(ALL_LIKES)
+    assert nested.done()
+    return tickets, single, nested
+
+
+def _mirrored(traces):
+    """Range names a run's traces should have opened: one per span but
+    the root, the queue wait and a chunk's shared executes, and one
+    ``finish`` per finished trace."""
+    from collections import Counter
+    return Counter(s.name for tr in traces for s in tr.spans[1:]
+                   if s.name != "queue" and
+                   not s.attrs.get("shared_launch", False)) + \
+        Counter(finish=sum(tr.root.t1 is not None for tr in traces))
+
+
+def test_served_span_trees_nest_the_new_spans(scale1):
+    srv = traced_server(scale1, max_batch=4)
+    tickets, single, nested = _serve_scenario(srv)
+    lead = tickets[0].trace
+    assert _edges(lead) >= {
+        ("submit", "request"), ("queue", "request"), ("flush", "request"),
+        ("front", "flush"), ("parse", "front"), ("plan", "front"),
+        ("execute", "flush"), ("device.launch", "execute"),
+        ("head_sync", "device.launch"), ("copyback", "execute"),
+        ("demux", "execute")}
+    assert _one(lead, "flush").attrs["requests"] == 4
+    assert _one(lead, "front").attrs["requests"] == 4
+    # the others share the lead's launch: an execute under their own
+    # open submit (the fourth drained the bucket) or under the root
+    for t in tickets[1:]:
+        names = {s.name for s in t.trace.spans}
+        assert not names & {"flush", "front", "head_sync", "copyback"}
+        assert _one(t.trace, "execute").attrs["shared_launch"] is True
+    assert ("execute", "submit") in _edges(tickets[-1].trace)
+    assert _edges(single.trace) >= {
+        ("flush", "request"), ("front", "flush"), ("execute", "flush"),
+        ("head_sync", "device.launch"), ("copyback", "execute")}
+    assert _edges(nested.trace) >= {
+        ("flush", "submit"), ("front", "flush"), ("execute", "flush"),
+        ("head_sync", "device.launch"), ("copyback", "execute")}
+    for tr in (lead, single.trace, nested.trace):
+        front, ex = _one(tr, "front"), _one(tr, "execute")
+        launches = [s for s in tr.spans if s.name == "device.launch"]
+        copy, demux = _one(tr, "copyback"), _one(tr, "demux")
+        assert front.t1 <= ex.t0
+        assert max(s.t1 for s in launches) <= copy.t0
+        assert copy.t1 <= demux.t0 <= demux.t1 <= ex.t1
+        assert all(s.t1 is not None for s in tr.spans)
+
+
+def test_batcher_spans_close_at_their_own_end(scale1, monkeypatch):
+    """The batcher's bookkeeping after the engine returns runs inside
+    ``flush``; a drain nested in ``submit`` runs inside it, and the
+    trace finishes only after both have closed."""
+    srv = traced_server(scale1, max_batch=4)
+    clock = srv.engine.config.clock
+    queued = []
+    record = srv.engine.metrics.record_queue
+    monkeypatch.setattr(srv.engine.metrics, "record_queue",
+                        lambda ms: (queued.append(clock()), record(ms)))
+    tickets, single, nested = _serve_scenario(srv)
+    assert len(queued) == 6
+    for tr, t in ((tickets[0].trace, queued[0]), (single.trace, queued[4]),
+                  (nested.trace, queued[5])):
+        flush, ex = _one(tr, "flush"), _one(tr, "execute")
+        assert ex.t1 < t < flush.t1 < tr.root.t1
+    submit = _one(nested.trace, "submit")
+    assert _one(nested.trace, "flush").t1 < submit.t1 < nested.trace.root.t1
+    assert srv.engine.tracer.finished == 6
+
+
+def test_queue_survives_the_end_of_submit(scale1):
+    srv = traced_server(scale1, max_batch=4)
+    tickets = [srv.submit(q) for q in _instances(3)]
+    lead = tickets[0].trace
+    submit, queue = _one(lead, "submit"), _one(lead, "queue")
+    assert submit.t1 is not None and queue.t1 is None
+    tickets[0].result()
+    flush, front = _one(lead, "flush"), _one(lead, "front")
+    assert submit.t1 < flush.t0 <= queue.t1 <= front.t0
+    assert queue.parent == 0 and queue.attrs["batch"] == 3
+
+
+def test_copyback_bytes_are_the_returned_arrays(scale1, monkeypatch):
+    from repro_torch.core import jexec
+    returned = []
+    launch = jexec.PlanExecutor._launch
+
+    def spy(self, *args, **kwargs):
+        out = launch(self, *args, **kwargs)
+        returned.append(out)
+        return out
+    monkeypatch.setattr(jexec.PlanExecutor, "_launch", spy)
+    tickets, single, nested = _serve_scenario(
+        traced_server(scale1, max_batch=4))
+    copies = [_one(t.trace, "copyback")
+              for t in (tickets[0], single, nested)]
+    assert len(returned) == 3
+    assert [c.attrs["bytes"] for c in copies] == \
+        [sum(a.nbytes for a, _ in out) for out in returned]
+    assert [c.attrs["rows"] for c in copies] == \
+        [sum(len(a) for a, _ in out) for out in returned]
+    assert [c.attrs["bindings"] for c in copies] == [4, 1, 1]
+    assert copies[1].attrs["bytes"] > 0
+
+
+def test_profiler_holds_one_range_a_mirrored_span(scale1, tmp_path):
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    srv = traced_server(scale1, max_batch=4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tickets, single, nested = _serve_scenario(srv)
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    ranges = Counter(e["name"][len("repro."):] for e in events
+                     if e.get("cat") == "user_annotation"
+                     and e.get("name", "").startswith("repro."))
+    traces = [t.trace for t in tickets] + [single.trace, nested.trace]
+    want = _mirrored(traces)
+    assert ranges == want
+    assert set(want) >= {"submit", "flush", "front", "execute",
+                         "device.launch", "head_sync", "copyback", "demux"}
+
+
+def test_profiler_off_enters_no_range(scale1, monkeypatch):
+    entered = []
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        lambda *a: entered.append(a))
+    _serve_scenario(traced_server(scale1, max_batch=4))
+    assert entered == []
+
+
+def test_every_range_closes_exactly_once(scale1, monkeypatch):
+    """With the profiler on, a range a span opens is closed once, also
+    where an enclosing ``end`` or ``finish`` closed the span early."""
+    from collections import Counter
+    from types import SimpleNamespace
+    entered, exited = [], []
+
+    def enter(name, args):
+        entered.append(name)
+        return len(entered)
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        True)
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        enter)
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_exit",
+                        SimpleNamespace(_RecordFunction=exited.append))
+    tickets, single, nested = _serve_scenario(
+        traced_server(scale1, max_batch=4))
+    assert sorted(exited) == list(range(1, len(entered) + 1))
+    traces = [t.trace for t in tickets] + [single.trace, nested.trace]
+    assert Counter(n[len("repro."):] for n in entered) == _mirrored(traces)
+
+
+def test_untraced_serving_builds_no_span(scale1, monkeypatch):
+    from repro_torch.obs import tracer
+    built = []
+
+    class Counted(tracer.Span):
+        __slots__ = ()
+
+        def __init__(self, *args):
+            built.append(args[1])
+            super().__init__(*args)
+    monkeypatch.setattr(tracer, "Span", Counted)
+    srv = traced_server(scale1, rate=0.0, max_batch=4)
+    tickets, single, nested = _serve_scenario(srv)
+    assert built == []
+    assert all(t.trace is None for t in (*tickets, single, nested))
+    assert srv.engine.tracer.started == 0
